@@ -42,51 +42,19 @@
 // C interface (loaded with ctypes): flash_rel_attention_fwd returns the
 // cudaError_t of the launch; 0 means the kernel was launched.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
+#include "attention_tile.cuh"
 
 namespace {
 
-constexpr int kD = 64;         // head size
-constexpr int kBQ = 64;        // q rows per block
-constexpr int kBK = 64;        // kv columns per step
+using namespace attn;
+
 constexpr int kPMax = 128;     // bucket table rows
-constexpr int kThreads = 256;  // 16 x 16 thread grid, 4x4 outputs each
-constexpr int kLd = kBQ + 4;   // padded row of the transposed tiles
 
 struct Smem {
-  float qt[kD][kLd];           // q tile, transposed: qt[d][r]
-  float kt[kD][kLd];           // k tile, transposed: kt[d][c]
-  float v[kBK][kD + 4];        // v tile: v[c][d]
-  float pt[kBK][kLd];          // probabilities, transposed: pt[c][r]
+  Tiles t;
   float srel[kBQ][kPMax + 1];  // bucket logits s_rel[r][p]
   float kvbias[kBK];           // (kv_mask - 1) * 1e9
 };
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
-// Max and sum over the 16 lanes that share a row group (lanes 0-15 and
-// 16-31 of a warp are two separate groups).
-__device__ __forceinline__ float half_warp_max(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-__device__ __forceinline__ float half_warp_sum(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 2)
@@ -106,9 +74,7 @@ flash_rel_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const size_t base = static_cast<size_t>(bh) * L * kD;
   const int right = P - 1 - left;
 
-  const T* qp = q + base + static_cast<size_t>(q0) * kD;
-  for (int i = tid; i < kBQ * kD; i += kThreads)
-    s.qt[i % kD][i / kD] = to_f32(qp[i]);
+  load_transposed(s.t.qt, q + base + static_cast<size_t>(q0) * kD, tid);
   __syncthreads();
 
   // Bucket logits s_rel[r][p] = q_r . E[p], fp32 accumulation.
@@ -118,7 +84,7 @@ flash_rel_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const T* ep = e + p * kD;
     float acc = 0.f;
 #pragma unroll 16
-    for (int d = 0; d < kD; ++d) acc = fmaf(s.qt[d][r], to_f32(ep[d]), acc);
+    for (int d = 0; d < kD; ++d) acc = fmaf(s.t.qt[d][r], to_f32(ep[d]), acc);
     s.srel[r][p] = acc;
   }
 
@@ -138,34 +104,13 @@ flash_rel_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // The previous step is done with kt, v, pt and kvbias (and, on the
     // first step, every thread's s_rel writes are visible).
     __syncthreads();
-    const T* kp = k + base + static_cast<size_t>(k0) * kD;
-    const T* vp = v + base + static_cast<size_t>(k0) * kD;
-    for (int i = tid; i < kBK * kD; i += kThreads) {
-      const int c = i / kD;
-      const int d = i % kD;
-      s.kt[d][c] = to_f32(kp[i]);
-      s.v[c][d] = to_f32(vp[i]);
-    }
+    load_kv(s.t, k + base + static_cast<size_t>(k0) * kD,
+            v + base + static_cast<size_t>(k0) * kD, tid);
     if (tid < kBK) s.kvbias[tid] = (maskp[k0 + tid] - 1.0f) * 1e9f;
     __syncthreads();
 
-    // Scores: sc[i][j] = q_{ty*4+i} . k_{tx*4+j}
     float sc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < kD; ++d) {
-      const float4 a = *reinterpret_cast<const float4*>(&s.qt[d][ty * 4]);
-      const float4 bb = *reinterpret_cast<const float4*>(&s.kt[d][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {bb.x, bb.y, bb.z, bb.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sc[i][j] = fmaf(av[i], bv[j], sc[i][j]);
-    }
+    qk_patch(s.t, ty, tx, sc);
 
     // Relative bias, scale, kv mask; then the online-softmax update.
 #pragma unroll
@@ -198,24 +143,9 @@ flash_rel_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) o[i][j] *= alpha;
     }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s.pt[tx * 4 + j][ty * 4 + i] = sc[i][j];
+    store_p(s.t, ty, tx, sc);
     __syncthreads();
-
-    // o[i][j] += sum_c p[ty*4+i][c] * v[c][tx*4+j]
-#pragma unroll 8
-    for (int c = 0; c < kBK; ++c) {
-      const float4 a = *reinterpret_cast<const float4*>(&s.pt[c][ty * 4]);
-      const float4 bb = *reinterpret_cast<const float4*>(&s.v[c][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {bb.x, bb.y, bb.z, bb.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) o[i][j] = fmaf(av[i], bv[j], o[i][j]);
-    }
+    pv_patch(s.t, ty, tx, o);
   }
 
   T* op = out + base + static_cast<size_t>(q0) * kD;

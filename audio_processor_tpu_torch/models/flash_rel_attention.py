@@ -27,12 +27,9 @@ show that it went through the kernel.
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
-from audio_processor_tpu_torch import _build
+from audio_processor_tpu_torch.models import _cuda_call
 
 HEAD_DIM = 64        # the conformer head size; the kernel's only d
 MAX_BUCKETS = 128    # the bucket table must fit the kernel's s_rel tile
@@ -93,45 +90,21 @@ def flash_rel_attention_plain(q, k, v, E, kv_mask, sm_scale: float,
     return out
 
 
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("flash_rel_attention")
-    fwd = lib.flash_rel_attention_fwd
-    fwd.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    fwd.restype = ctypes.c_int
-    lib.flash_rel_attention_error.argtypes = [ctypes.c_int]
-    lib.flash_rel_attention_error.restype = ctypes.c_char_p
-    return lib
-
-
 def _launch(q, k, v, E, kv_mask, sm_scale: float, left: int,
             num_buckets: int) -> torch.Tensor:
     dev = q.device
     E = E.to(q.dtype)
-    for name, t in (("q", q), ("k", k), ("v", v), ("E", E),
-                    ("kv_mask", kv_mask)):
-        if t.device != dev:
-            raise ValueError(f"{name} on {t.device}, q on {dev}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    _cuda_call.check_operands(q, (("q", q), ("k", k), ("v", v), ("E", E),
+                                  ("kv_mask", kv_mask)))
     if kv_mask.dtype != torch.float32:
         raise ValueError(f"kv_mask must be float32, got {kv_mask.dtype}")
     B, H, L, _ = q.shape
-    if B * H > 65535:
-        raise ValueError(f"B*H={B * H} exceeds the kernel's grid limit")
     out = torch.empty_like(q)
-    lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.flash_rel_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), E.data_ptr(),
-            kv_mask.data_ptr(), out.data_ptr(), B, H, L, num_buckets,
-            left, float(sm_scale), int(q.dtype == torch.bfloat16), stream)
-    if rc != 0:
-        msg = lib.flash_rel_attention_error(rc).decode()
-        raise RuntimeError(f"flash_rel_attention launch failed: "
-                           f"cudaError {rc} ({msg})")
+    _cuda_call.call(
+        "flash_rel_attention", "ppppppiiiiifi", dev, q.data_ptr(),
+        k.data_ptr(), v.data_ptr(), E.data_ptr(), kv_mask.data_ptr(),
+        out.data_ptr(), B, H, L, num_buckets, left, float(sm_scale),
+        int(q.dtype == torch.bfloat16))
     flash_rel_attention.launches += 1
     return out
 

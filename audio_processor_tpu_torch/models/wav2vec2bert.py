@@ -12,11 +12,15 @@ Conventions kept from the JAX package:
   matmul casts its weight to it (``dense``). LayerNorms run in fp32.
   Logits are fp32.
 - Attention: ``attention_impl="flash_rel"`` runs the hand-written CUDA
-  kernel (models/flash_rel_attention.py); ``"xla"`` is the plain eager
-  path with the static-index relative bias; ``"auto"`` picks the kernel
-  for CUDA tensors and the plain path on the CPU. ``"flash"`` (the
-  stock flash kernel fed a materialised [B, H, L, L] bias) is not
-  ported.
+  kernel that builds the relative bias inside
+  (models/flash_rel_attention.py); ``"flash"`` materialises the bias
+  (relative logits + kv mask) to [B, H, L, L] in bf16 and runs the flash
+  kernel of models/flash_attention.py on it; ``"xla"`` is the plain eager
+  path with the static-index relative bias; ``"auto"`` picks
+  ``flash_rel`` for CUDA tensors and the plain path on the CPU. As in
+  the reference, ``flash_rel`` takes its kernel only when L is a
+  multiple of 256 and ``flash`` only when L is a multiple of 128; at any
+  other L both run the plain path.
 - :func:`params_from_jax` turns the JAX param pytree (stacked leading
   layer axis, ``kernel [in, out]``) into this module's state dict, so
   both packages can run one set of weights.
@@ -25,6 +29,7 @@ Conventions kept from the JAX package:
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, Optional
 
@@ -33,6 +38,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from audio_processor_tpu_torch.models.flash_attention import flash_attention
 from audio_processor_tpu_torch.models.flash_rel_attention import (
     flash_rel_attention,
 )
@@ -62,16 +68,18 @@ class W2VBertConfig:
                 + self.right_max_position_embeddings + 1)
 
 
+# The L multiple at which each kernel path takes its kernel (the
+# reference's rule); attention at any other L takes the plain path. The
+# engine pads L to a multiple of every entry, so its batches always
+# reach the kernel.
+KERNEL_L_MULTIPLE = {"flash_rel": 256, "flash": 128}
+
+
 def resolve_attention_impl(impl: str, device: torch.device) -> str:
     """Map a configured ``attention_impl`` to the path that runs."""
     if impl == "auto":
         return "flash_rel" if device.type == "cuda" else "xla"
-    if impl == "flash":
-        raise NotImplementedError(
-            "attention_impl='flash' (the stock flash kernel with a "
-            "materialised [B, H, L, L] bias) is not ported yet: see "
-            "ROADMAP.md, Queue 2 (kernels still to port)")
-    if impl not in ("flash_rel", "xla"):
+    if impl not in ("flash_rel", "flash", "xla"):
         raise ValueError(f"unknown attention_impl {impl!r}")
     return impl
 
@@ -105,6 +113,38 @@ class FeedForward(nn.Module):
                                                      x)))
 
 
+@functools.lru_cache(maxsize=32)
+def _distance_index(seq_len: int, left: int, right: int,
+                    device: torch.device) -> torch.Tensor:
+    """Static [L, L] map: (query i, key j) -> clipped-distance bucket."""
+    pos = torch.arange(seq_len, device=device)
+    return (pos[None, :] - pos[:, None]).clamp(-left, right) + left
+
+
+def _relative_bias(cfg: W2VBertConfig, q: torch.Tensor, E: torch.Tensor,
+                   out_dtype: torch.dtype) -> torch.Tensor:
+    """Unscaled relative_key bias rel[b,h,l,m] = q_l . E[clip(m-l)] as
+    [B, H, L, L] in ``out_dtype``: the bucket logits q . E^T (fp32
+    accumulation) rounded to ``out_dtype``, then gathered with the
+    static distance index (rounding commutes with the gather)."""
+    B, H, L, _ = q.shape
+    idx = _distance_index(L, cfg.left_max_position_embeddings,
+                          cfg.right_max_position_embeddings, q.device)
+    srel = (q.float() @ E.float().T).to(out_dtype)       # [B, H, L, P]
+    return srel.gather(3, idx.expand(B, H, L, L))
+
+
+def flash_bias(cfg: W2VBertConfig, q: torch.Tensor, E: torch.Tensor,
+               attn_bias: torch.Tensor, scale: float) -> torch.Tensor:
+    """The [B, H, L, L] bias the reference feeds the stock flash kernel:
+    bf16(rel) + bf16(attn_bias / scale), in bf16 whatever the compute
+    dtype (the kernel multiplies the sum by ``scale``). The mask is
+    added in place, so one [B, H, L, L] tensor is allocated."""
+    ab = _relative_bias(cfg, q, E, torch.bfloat16)
+    ab += (attn_bias / scale).to(torch.bfloat16)
+    return ab
+
+
 class SelfAttention(nn.Module):
     def __init__(self, cfg: W2VBertConfig):
         super().__init__()
@@ -131,18 +171,20 @@ class SelfAttention(nn.Module):
         scale = 1.0 / math.sqrt(cfg.head_size)
         left, P = cfg.left_max_position_embeddings, cfg.num_positions
         E = self.distance_embedding.to(x.dtype)          # [P, hd]
-        if impl == "flash_rel":
+        kernel = (impl in KERNEL_L_MULTIPLE
+                  and L % KERNEL_L_MULTIPLE[impl] == 0)
+        if impl == "flash_rel" and kernel:
             out = flash_rel_attention(q, k, v, E, kv_mask, scale, left, P)
+        elif impl == "flash" and kernel:
+            out = flash_attention(q, k, v,
+                                  flash_bias(cfg, q, E, attn_bias, scale),
+                                  scale)
         else:
             # Plain path: scores and the static-index relative bias in
             # fp32, probabilities rounded to the compute dtype.
-            pos = torch.arange(L, device=x.device)
-            bucket = (pos[None, :] - pos[:, None]).clamp(
-                -left, cfg.right_max_position_embeddings) + left
-            qf = q.float()
-            srel = qf @ E.float().T                      # [B, nh, L, P]
-            scores = (qf @ k.float().transpose(-1, -2)) * scale \
-                + srel[:, :, pos[:, None], bucket] * scale + attn_bias
+            scores = (q.float() @ k.float().transpose(-1, -2)) * scale \
+                + _relative_bias(cfg, q, E, torch.float32) * scale \
+                + attn_bias
             probs = torch.softmax(scores, dim=-1).to(x.dtype)
             out = (probs.float() @ v.float()).to(x.dtype)
         out = out.transpose(1, 2).reshape(B, L, H)

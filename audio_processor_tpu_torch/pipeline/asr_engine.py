@@ -45,6 +45,8 @@ from audio_processor_tpu_torch.models import wav2vec2bert as w2v
 logger = logging.getLogger(__name__)
 
 SEQ_MULTIPLE = 256   # encoder frames are padded to this (the reference's)
+# so that every batch's L takes the kernel of its attention path.
+assert all(SEQ_MULTIPLE % m == 0 for m in w2v.KERNEL_L_MULTIPLE.values())
 PREP_AHEAD = 3       # host prep runs this many sub-batches ahead
 
 

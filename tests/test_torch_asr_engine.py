@@ -12,6 +12,7 @@ from audio_processor_tpu.models.tokenizer import CTCVocab
 from audio_processor_tpu.pipeline.chunker import chunk_batch, split_audio
 from audio_processor_tpu_torch.models import wav2vec2bert as tw
 from audio_processor_tpu_torch.pipeline.asr_engine import ASREngine
+from audio_processor_tpu_torch.pipeline.engine import DataProcessor
 
 from tests.conftest import make_stereo_call
 
@@ -71,6 +72,17 @@ def _jax_logits(jeng, buf, lengths, bucket):
                                  attention_impl=jeng.attention_impl))
 
 
+def _assert_clear_ids_equal(jeng, ids, jids, jmask, buf, lengths, n,
+                            bucket):
+    """Greedy ids equal on the batch's real rows wherever the JAX
+    logits' top-2 margin exceeds MARGIN (most valid frames)."""
+    logits = _jax_logits(jeng, buf, lengths, bucket)[:3 * n]
+    top2 = np.sort(logits, axis=-1)[..., -2:]
+    clear = (top2[..., 1] - top2[..., 0]) > MARGIN
+    assert clear[jmask[:3 * n]].mean() > 0.5
+    np.testing.assert_array_equal(ids[:3 * n][clear], jids[:3 * n][clear])
+
+
 def test_fused_program_matches_jax(engines):
     jeng, teng = engines
     chunks = split_audio(_int16_exact_call(9.0), 16000, "c.wav", 4.0, 1.0)
@@ -95,16 +107,71 @@ def test_fused_program_matches_jax(engines):
     # and numerically arbitrary (normalizing a constant signal), so only
     # the batch's real chunks are compared.
     n = len(batch)
-    logits = _jax_logits(jeng, buf, lengths, bucket)[:3 * n]
-    top2 = np.sort(logits, axis=-1)[..., -2:]
-    clear = (top2[..., 1] - top2[..., 0]) > MARGIN
-    assert clear[jmask[:3 * n]].mean() > 0.5
-    np.testing.assert_array_equal(ids[:3 * n][clear], jids[:3 * n][clear])
+    _assert_clear_ids_equal(jeng, ids, jids, jmask, buf, lengths, n, bucket)
 
     assert af.shape == jaf.shape == (4, 2, 38)
     scale = np.maximum(np.abs(jaf[:n]), 1.0)
     np.testing.assert_allclose(af[:n] / scale, jaf[:n] / scale,
                                atol=FEAT_ATOL)
+
+
+def test_flash_attention_from_the_config(engines, monkeypatch):
+    """``attention_impl: flash`` in the config reaches the engine that the
+    DataProcessor builds, with no other change, and the fused program
+    under it (bias materialised in bf16, flash plain version on the CPU,
+    L = 256) gives the JAX program's ids on clear frames."""
+    jeng, teng = engines
+    monkeypatch.setattr(ASREngine, "_load_or_init",
+                        lambda self: (teng.model, teng.vocab))
+    cfg = PipelineConfig.from_dict({**teng.config.to_dict(),
+                                    "attention_impl": "flash"})
+    proc = DataProcessor(cfg, device="cpu")
+    try:
+        proc.setup_models()
+    finally:
+        proc.close()
+    feng = proc.asr_engine
+    assert feng.attention_impl == "flash" and feng.model is teng.model
+
+    chunks = split_audio(_int16_exact_call(9.0), 16000, "c.wav", 4.0, 1.0)
+    (batch,) = chunk_batch(chunks, feng.bucket_samples)
+    buf, lengths = feng._prepare_fused_buffer(batch, 4)
+    bucket = batch.bucket_len
+    jids, jmask, _ = (np.asarray(a) for a in jeng._fused_fn(bucket)(
+        jeng.params, buf, lengths))
+    ids, mask, _ = (t.numpy() for t in feng._fused(
+        torch.from_numpy(buf), torch.from_numpy(lengths), bucket))
+    assert mask.shape[1] % 128 == 0          # the flash kernel's path
+    np.testing.assert_array_equal(mask, jmask)
+    _assert_clear_ids_equal(jeng, ids, jids, jmask, buf, lengths,
+                            len(batch), bucket)
+
+
+@pytest.mark.parametrize("impl, wrapper", [
+    ("flash_rel", "flash_rel_attention"), ("flash", "flash_attention")])
+def test_every_padded_batch_reaches_the_kernel_wrapper(engines, monkeypatch,
+                                                      impl, wrapper):
+    """The engine pads L so that the model never sends one of its batches
+    to the plain attention that an L off the kernel's multiple takes: at
+    each bucket, every encoder layer calls the kernel's wrapper once."""
+    _, teng = engines
+    calls = []
+    real = getattr(tw, wrapper)
+    monkeypatch.setattr(tw, wrapper,
+                        lambda q, *a: calls.append(q.shape[2]) or real(q, *a))
+    cfg = PipelineConfig.from_dict({**teng.config.to_dict(),
+                                    "attention_impl": impl})
+    eng = ASREngine(cfg, device="cpu", model=teng.model, vocab=teng.vocab)
+    layers = eng.model_cfg.num_hidden_layers
+    for dur in (2.0, 4.0):
+        chunks = split_audio(_int16_exact_call(dur), 16000, "c.wav", 4.0,
+                             1.0)
+        (batch,) = chunk_batch(chunks, eng.bucket_samples)
+        buf, lengths = eng._prepare_fused_buffer(batch, 1)
+        del calls[:]
+        _, mask, _ = eng._fused(torch.from_numpy(buf),
+                                torch.from_numpy(lengths), batch.bucket_len)
+        assert calls == [mask.shape[1]] * layers, (dur, calls)
 
 
 def test_transcribe_chunks_row_contract(engines):
@@ -163,10 +230,12 @@ def test_unported_configuration_raises():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             ASREngine(cfg, device="cuda", model=tiny)
-    for extras, err in (({"quantization": "int8"}, NotImplementedError),
-                        ({"fuse_acoustic_features": False},
-                         NotImplementedError),
-                        ({"attention_impl": "flash"}, NotImplementedError)):
-        with pytest.raises(err, match="ROADMAP"):
+    for extras in ({"quantization": "int8"},
+                   {"fuse_acoustic_features": False}):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
             ASREngine(PipelineConfig.from_dict({**cfg.to_dict(), **extras}),
                       device="cpu", model=tiny)
+    flash = PipelineConfig.from_dict({**cfg.to_dict(),
+                                      "attention_impl": "flash"})
+    assert ASREngine(flash, device="cpu",
+                     model=tiny).attention_impl == "flash"

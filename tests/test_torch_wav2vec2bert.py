@@ -1,7 +1,11 @@
 """The port's Wav2Vec2Bert (PyTorch) against the JAX reference on one set
 of weights: JAX ``init_params`` converted with ``params_from_jax``, a
 tiny config (hidden 128, 2 heads of 64, 2 layers), features from a
-numpy seed with a ragged mask."""
+numpy seed with a ragged mask. The port's ``flash_rel`` is held against
+the JAX ``xla`` path, its ``flash`` against the JAX ``flash`` path with
+the stock Pallas kernel in interpret mode."""
+
+import functools
 
 import numpy as np
 import pytest
@@ -23,6 +27,20 @@ BF16_SCALE_ULPS = 8 * 2 ** -8
 MARGIN = 1e-3
 
 
+# The JAX path each port path is held against.
+JAX_IMPL = {"xla": "xla", "flash_rel": "xla", "flash": "flash"}
+
+
+@pytest.fixture
+def stock_flash_interpret(monkeypatch):
+    """Runs the stock Pallas flash kernel (JAX ``attention_impl="flash"``)
+    in interpret mode on the CPU."""
+    import jax.experimental.pallas.ops.tpu.flash_attention as stock_fa
+
+    monkeypatch.setattr(stock_fa.pl, "pallas_call", functools.partial(
+        stock_fa.pl.pallas_call, interpret=True))
+
+
 @pytest.fixture(scope="module")
 def shared():
     import jax
@@ -40,18 +58,21 @@ def shared():
     return jcfg, params, model.eval(), feats, mask
 
 
-def _jax_logits(shared, dtype):
+def _jax_logits(shared, dtype, impl="xla", frames=None):
     import jax.numpy as jnp
 
     jcfg, params, _, feats, mask = shared
-    return np.asarray(jw.forward(params, jcfg, jnp.asarray(feats),
-                                 jnp.asarray(mask), dtype=dtype))
+    return np.asarray(jw.forward(params, jcfg,
+                                 jnp.asarray(feats[:, :frames]),
+                                 jnp.asarray(mask[:, :frames]), dtype=dtype,
+                                 attention_impl=impl))
 
 
-def _port_logits(shared, dtype, impl):
+def _port_logits(shared, dtype, impl, frames=None):
     _, _, model, feats, mask = shared
     with torch.inference_mode():
-        return model(torch.from_numpy(feats), torch.from_numpy(mask),
+        return model(torch.from_numpy(feats[:, :frames]),
+                     torch.from_numpy(mask[:, :frames]),
                      dtype=dtype, attention_impl=impl).numpy()
 
 
@@ -70,21 +91,22 @@ def test_params_from_jax_layouts(shared):
                                           KW["hidden_size"])
 
 
-@pytest.mark.parametrize("impl", ["xla", "flash_rel"])
-def test_fp32_logits_match_jax(shared, impl):
+@pytest.mark.parametrize("impl", ["xla", "flash_rel", "flash"])
+def test_fp32_logits_match_jax(shared, stock_flash_interpret, impl):
     import jax.numpy as jnp
 
-    ref = _jax_logits(shared, jnp.float32)
+    ref = _jax_logits(shared, jnp.float32, JAX_IMPL[impl])
     got = _port_logits(shared, torch.float32, impl)
     assert got.dtype == np.float32
     np.testing.assert_allclose(got, ref, atol=FP32_ATOL, rtol=0)
 
 
-@pytest.mark.parametrize("impl", ["xla", "flash_rel"])
-def test_bf16_logits_at_bf16_rounding_scale(shared, impl):
+@pytest.mark.parametrize("impl", ["xla", "flash_rel", "flash"])
+def test_bf16_logits_at_bf16_rounding_scale(shared, stock_flash_interpret,
+                                            impl):
     import jax.numpy as jnp
 
-    ref = _jax_logits(shared, jnp.bfloat16)
+    ref = _jax_logits(shared, jnp.bfloat16, JAX_IMPL[impl])
     got = _port_logits(shared, torch.bfloat16, impl)
     assert got.dtype == np.float32
     scale = float(np.abs(ref).max())
@@ -108,10 +130,26 @@ def test_greedy_ids_match_off_near_ties(shared):
     assert (tids[~mask] == 0).all()
 
 
+@pytest.mark.parametrize("impl", ["flash_rel", "flash"])
+def test_kernel_paths_run_plain_off_their_length_multiple(shared, impl):
+    """L = 200 is a multiple of neither 256 (flash_rel) nor 128 (flash):
+    like the reference, both take the plain path there, so the port
+    equals its own ``xla`` path bit for bit and the JAX path (which
+    takes its einsum path for the same reason) within FP32_ATOL."""
+    import jax.numpy as jnp
+
+    got = _port_logits(shared, torch.float32, impl, frames=200)
+    np.testing.assert_array_equal(
+        got, _port_logits(shared, torch.float32, "xla", frames=200))
+    ref = _jax_logits(shared, jnp.float32, impl, frames=200)
+    np.testing.assert_allclose(got, ref, atol=FP32_ATOL, rtol=0)
+
+
 def test_unported_options_raise(shared):
     _, _, model, feats, _ = shared
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model(torch.from_numpy(feats), attention_impl="flash")
+    assert tw.resolve_attention_impl("flash", torch.device("cpu")) == "flash"
+    with pytest.raises(ValueError, match="attention_impl"):
+        model(torch.from_numpy(feats), attention_impl="flash_xla")
     with pytest.raises(NotImplementedError, match="int8"):
         tw.params_from_jax({"feature_projection": {"projection": {
             "kernel_q": np.zeros((2, 2), np.int8)}}, "lm_head": {},

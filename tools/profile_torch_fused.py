@@ -3,11 +3,14 @@
 CUDA card.
 
     python3 tools/profile_torch_fused.py [--seed N]
+        [--attention-impl {flash_rel,flash}]
 
 Builds ``audio_processor_tpu_torch.pipeline.asr_engine.ASREngine`` in
 synthetic mode (w2v-bert-2.0 width, random weights from the seed, bf16),
 makes one full batch of 16 chunks x 25 s (48 encoder rows x 1280
-frames, int16 wire), warms it up, times ``_fused`` with a host clock
+frames, int16 wire) under the chosen attention (``flash_rel``, the
+default, or ``flash``: the materialised bf16 bias and the flash
+kernel), warms it up, times ``_fused`` with a host clock
 around ``torch.cuda.synchronize()``, then runs it once more under
 ``torch.profiler`` and reads the exported Chrome trace. Only device
 activity counts (kernels, memcpy, memset), so host-side operator
@@ -43,6 +46,8 @@ import torch
 # (category, substrings of the kernel name), first match wins.
 CATEGORIES = (
     ("flash_rel", ("flash_rel_kernel",)),
+    ("flash", ("flash_attention_kernel",)),
+    ("bias gather", ("gather",)),
     ("gemm", ("nvjet", "gemm", "xmma", "cutlass")),
     ("cast/copy", ("copy_kernel",)),
     ("layer_norm", ("layer_norm",)),
@@ -110,6 +115,8 @@ def make_batch(engine, seed: int):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--attention-impl", choices=("flash_rel", "flash"),
+                    default="flash_rel")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_torch_fused: needs a CUDA device")
@@ -117,7 +124,8 @@ def main() -> int:
     from audio_processor_tpu_torch.pipeline.asr_engine import ASREngine
 
     cfg = PipelineConfig.from_dict({"chunk_batch_size": 16,
-                                    "enable_mixed_precision": True})
+                                    "enable_mixed_precision": True,
+                                    "attention_impl": args.attention_impl})
     engine = ASREngine(cfg, device="cuda")
     buf, lengths, bucket = make_batch(engine, args.seed)
     print(f"batch: {tuple(buf.shape)} {buf.dtype} -> encoder "
