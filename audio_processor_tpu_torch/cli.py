@@ -11,26 +11,98 @@ yet.
 
 from __future__ import annotations
 
+import argparse
 import logging
 import os
+import shutil
 import sys
 import time
+from datetime import datetime
 from pathlib import Path
 
 import torch
 
-from audio_processor_tpu.cli import (
-    build_arg_parser as _reference_arg_parser, check_disk_space,
-    setup_logging,
-)
-from audio_processor_tpu.config import load_config
+from audio_processor_tpu_torch.config import load_config
 
 logger = logging.getLogger(__name__)
 
 
-def build_arg_parser():
-    p = _reference_arg_parser()
-    p.description = "Call-center audio analytics pipeline (PyTorch/CUDA)"
+def setup_logging(logs_folder: str) -> None:
+    """Console + daily-rotating file logging
+    (reference: run.py:32-49, pipeline.py:164-186)."""
+    from logging.handlers import TimedRotatingFileHandler
+
+    Path(logs_folder).mkdir(parents=True, exist_ok=True)
+    ts = datetime.now().strftime("%Y%m%d_%H%M%S")
+    log_file = Path(logs_folder) / f"tpu_processing_{ts}.log"
+    fmt = logging.Formatter("%(asctime)s - %(levelname)s - %(message)s")
+    file_handler = TimedRotatingFileHandler(str(log_file), when="D",
+                                            interval=1, backupCount=14)
+    file_handler.setFormatter(fmt)
+    console = logging.StreamHandler()
+    console.setFormatter(fmt)
+    root = logging.getLogger()
+    root.setLevel(logging.INFO)
+    for h in list(root.handlers):
+        root.removeHandler(h)
+    root.addHandler(file_handler)
+    root.addHandler(console)
+
+
+def check_disk_space(min_free_gb: float) -> bool:
+    """Disk-space gate (reference: run.py:137-143)."""
+    free_gb = shutil.disk_usage("/").free / 1024 ** 3
+    if free_gb < min_free_gb:
+        logger.error("Insufficient disk space: %.1fGB free < %.1fGB "
+                     "required", free_gb, min_free_gb)
+        return False
+    return True
+
+
+def print_system_info(device: torch.device) -> None:
+    logger.info("torch %s on %s%s", torch.__version__, device,
+                f" ({torch.cuda.get_device_name(device)})"
+                if device.type == "cuda" else "")
+    try:
+        import psutil
+
+        vm = psutil.virtual_memory()
+        logger.info("RAM: %.1fGB total, %.1f%% used",
+                    vm.total / 1024 ** 3, vm.percent)
+    except ImportError:
+        pass
+
+
+def build_arg_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        description="Call-center audio analytics pipeline (PyTorch/CUDA)")
+    p.add_argument("--config", default="config.yaml",
+                   help="YAML configuration file")
+    p.add_argument("--save-mode", choices=["database", "csv"],
+                   default="database")
+    p.add_argument("--dry-run", action="store_true",
+                   help="scan and estimate only")
+    p.add_argument("--performance-report", action="store_true")
+    p.add_argument("--no-minio-sync", action="store_true")
+    p.add_argument("--load-metadata", action="store_true")
+    p.add_argument("--input", help="override input_folder")
+    p.add_argument("--output", help="override output_folder")
+    p.add_argument("--stats", action="store_true",
+                   help="print database processing stats and exit")
+    p.add_argument("--watch", type=float, metavar="SECONDS", default=0,
+                   help="continuous mode: rescan the input folder every "
+                        "N seconds instead of exiting (the reference "
+                        "only supports cron re-invocation); idempotence "
+                        "markers make each sweep incremental")
+    p.add_argument("--serve", action="store_true",
+                   help="online mode: HTTP inference server with "
+                        "request micro-batching into the same fused "
+                        "device program (serving.py)")
+    p.add_argument("--port", type=int, default=8080,
+                   help="--serve listen port")
+    p.add_argument("--grpc-port", type=int, default=0,
+                   help="with --serve: also expose the gRPC service "
+                        "on this port (0 = HTTP only)")
     p.add_argument("--device", default="cuda",
                    help="torch device for the ASR program (default cuda; "
                         "cpu only when asked for)")
@@ -67,17 +139,15 @@ def main(argv=None) -> int:
         return 2
     if not check_disk_space(float(os.environ.get("MIN_FREE_DISK_GB", "5"))):
         return 3
-    logger.info("torch %s on %s%s", torch.__version__, device,
-                f" ({torch.cuda.get_device_name(device)})"
-                if device.type == "cuda" else "")
+    print_system_info(device)
 
     if cfg.minio.enabled and not args.no_minio_sync:
-        from audio_processor_tpu.host.minio_sync import MinIOSyncManager
+        from audio_processor_tpu_torch.host.minio_sync import MinIOSyncManager
 
         MinIOSyncManager(cfg).sync_to_local(cfg.input_folder)
 
     if args.dry_run:
-        from audio_processor_tpu.io.scanner import AudioFileScanner
+        from audio_processor_tpu_torch.io.scanner import AudioFileScanner
 
         files = AudioFileScanner(cfg).scan_files_parallel(
             Path(cfg.input_folder))
@@ -86,7 +156,7 @@ def main(argv=None) -> int:
 
     db_manager = None
     if args.save_mode == "database" or args.load_metadata or args.stats:
-        from audio_processor_tpu.host.db import DatabaseManager
+        from audio_processor_tpu_torch.host.db import DatabaseManager
 
         try:
             db_manager = DatabaseManager(cfg)
@@ -106,18 +176,18 @@ def main(argv=None) -> int:
         return 0
 
     if args.load_metadata and db_manager is not None:
-        from audio_processor_tpu.host.metadata import load_metadata
+        from audio_processor_tpu_torch.host.metadata import load_metadata
 
         load_metadata(db_manager, cfg)
 
     monitor = None
     if cfg.enable_performance_monitoring:
-        from audio_processor_tpu.obs.monitor import PerformanceMonitor
+        from audio_processor_tpu_torch.obs.monitor import PerformanceMonitor
 
-        monitor = PerformanceMonitor(cfg)
+        monitor = PerformanceMonitor(cfg, device=device)
         monitor.start_monitoring()
 
-    from audio_processor_tpu.host.topics import TopicClassifier
+    from audio_processor_tpu_torch.host.topics import TopicClassifier
     from audio_processor_tpu_torch.pipeline.engine import DataProcessor
 
     processor = DataProcessor(cfg, db_manager=db_manager,
@@ -135,7 +205,7 @@ def main(argv=None) -> int:
                         args.watch)
             time.sleep(args.watch)
             if cfg.minio.enabled and not args.no_minio_sync:
-                from audio_processor_tpu.host.minio_sync import (
+                from audio_processor_tpu_torch.host.minio_sync import (
                     MinIOSyncManager,
                 )
 

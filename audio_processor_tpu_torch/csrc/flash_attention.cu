@@ -20,24 +20,33 @@
 // block_k] score tile in VMEM and carries m/l/acc in scratch across
 // sequential kv grid steps; here a block loops over kv itself.
 //
-// Design: the layout of flash_rel_attention.cu (attention_tile.cuh): one
-// block of 256 threads per (b, h, 64-row q tile), 64-column kv steps, an
-// fp32 online softmax. Where that kernel gathers its bias from bucket
-// logits in shared memory, this one reads the thread's 4x4 patch of the
-// bias tile straight from HBM into registers (one 8- or 16-byte load per
-// row), issued before the barrier of the step so that the load overlaps
-// the k/v staging. Each bias element is read exactly once.
+// Design of the bf16 instances (the model's): tensor cores, per
+// attention_tc.cuh, the layout of flash_rel_attention.cu's bf16 instance:
+// one block of one warpgroup per (b, h, 64-row q tile), 64-column kv
+// tiles through a 2-stage cp.async ring; S = q . k^T and O += p . v with
+// wgmma (bf16 operands, fp32 accumulation), p kept in registers. The
+// [64, 64] bias tile rides in the same ring stage as its k and v tiles
+// (one coalesced cp.async pass, each bias element read from HBM once) and
+// is read from shared memory in the fragment's layout. Scale and log2 e
+// are folded into one multiply before an exp2 online softmax.
 //
 // What bounds it. The products are 4*B*H*L^2*d FLOP (0.32 TFLOP at B=48,
-// H=16, L=1280, d=64) on CUDA cores as fp32 FMA; the bias adds 2*L^2
-// bytes per (b, h) of HBM reads (2.5 GB per call at that shape in bf16,
-// about 0.75 ms at 3.35 TB/s), far below the FMA time, so the kernel is
-// compute-bound like flash_rel_attention.cu. Tensor cores (mma.sync /
-// wgmma) are the next step for both.
+// H=16, L=1280, d=64: 0.33 ms at the 989 TFLOP/s bf16 peak). The bias
+// adds 2*L^2 bytes per (b, h) of HBM reads in bf16: 2.52 GB per call at
+// that shape, which with 0.5 GB of q/k/v/o is 0.90 ms at 3.35 TB/s. So
+// with a bias the kernel is memory-bound, and the ring keeps the next
+// tile's bias in flight while the current one computes; without one it is
+// compute-bound like flash_rel_attention.cu.
+//
+// The fp32 instances keep the CUDA-core design of attention_tile.cuh: one
+// block of 256 threads per (b, h, 64-row q tile), a 4x4 patch of scores
+// per thread, fp32 FMA products, each thread's 4x4 bias patch read from
+// HBM into registers before the barrier of the step.
 //
 // C interface (loaded with ctypes): flash_attention_fwd returns the
 // cudaError_t of the launch; 0 means the kernel was launched.
 
+#include "attention_tc.cuh"
 #include "attention_tile.cuh"
 
 namespace {
@@ -137,21 +146,179 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, typename AB, bool kHasBias>
+// The bf16 instances, on tensor cores (attention_tc.cuh). Shared memory:
+// the q tile and a ring of kStages kv stages, each a k tile, a v tile and
+// (with a bias) the [64, 64] bias tile in AB, all swizzled.
+namespace tc {
+
+using namespace attn_tc;
+// attn (the fp32 instances') has constants of the same names.
+using attn_tc::kBK;
+using attn_tc::kBQ;
+using attn_tc::kD;
+using attn_tc::kThreads;
+
+constexpr int kStages = 2;
+
+template <typename AB, bool kHasBias>
+struct Layout {
+  static constexpr int kAbRowBytes = kBK * static_cast<int>(sizeof(AB));
+  static constexpr int kStageBytes =
+      2 * kTileBytes + (kHasBias ? kBQ * kAbRowBytes : 0);
+  static constexpr int kSmemBytes = 1024 + kTileBytes + kStages * kStageBytes;
+};
+
+// The two bias values of row r, columns col and col + 1, of a swizzled
+// bias tile, in fp32.
+__device__ __forceinline__ float2 bias_pair(const unsigned char* t, int r,
+                                            int col, __nv_bfloat16) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+      t + swz<kBK * 2>(r, col * 2)));
+}
+__device__ __forceinline__ float2 bias_pair(const unsigned char* t, int r,
+                                            int col, float) {
+  return *reinterpret_cast<const float2*>(t + swz<kBK * 4>(r, col * 4));
+}
+
+template <typename AB, bool kHasBias>
+__global__ void __launch_bounds__(kThreads, 3)
+flash_attention_kernel_tc(const __nv_bfloat16* __restrict__ q,
+                          const __nv_bfloat16* __restrict__ k,
+                          const __nv_bfloat16* __restrict__ v,
+                          const AB* __restrict__ ab,
+                          __nv_bfloat16* __restrict__ out, int L,
+                          float scale) {
+  using Lay = Layout<AB, kHasBias>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* const smem = align1024(smem_raw);
+  unsigned char* const qs = smem;
+  unsigned char* const ring = smem + kTileBytes;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int c2 = (lane & 3) * 2;
+  const int row0 = (tid >> 5) * 16;    // the warp's first row in the tile
+  const int q0 = blockIdx.x * kBQ;
+  const size_t bh = blockIdx.y;        // b * H + h
+  const size_t base = bh * L * kD;
+  const int n_tiles = L / kBK;
+  const auto* kb = reinterpret_cast<const unsigned char*>(k + base);
+  const auto* vb = reinterpret_cast<const unsigned char*>(v + base);
+  // The block's bias rows: ab[b, h, q0 .. q0 + 63, :].
+  const auto* abb = reinterpret_cast<const unsigned char*>(
+      ab + (bh * L + q0) * static_cast<size_t>(L));
+  const size_t ab_stride = static_cast<size_t>(L) * sizeof(AB);
+
+  auto load_tile = [&](int j) {
+    if (j < n_tiles) {
+      unsigned char* st = ring + (j % kStages) * Lay::kStageBytes;
+      copy_tile_async<128>(st, kb + static_cast<size_t>(j) * kTileBytes, 128,
+                           tid);
+      copy_tile_async<128>(st + kTileBytes,
+                           vb + static_cast<size_t>(j) * kTileBytes, 128,
+                           tid);
+      if constexpr (kHasBias)
+        copy_tile_async<Lay::kAbRowBytes>(
+            st + 2 * kTileBytes, abb + static_cast<size_t>(j) * Lay::kAbRowBytes,
+            ab_stride, tid);
+    }
+    cp_async_commit();
+  };
+  copy_tile_async<128>(
+      qs, reinterpret_cast<const unsigned char*>(q + base + q0 * kD), 128,
+      tid);
+  cp_async_commit();
+#pragma unroll
+  for (int j = 0; j < kStages - 1; ++j) load_tile(j);
+  cp_async_wait<kStages - 1>();        // the q tile
+  fence_async_shared();
+  __syncthreads();
+
+  const float c = scale * kLog2e;      // scores in the log2 domain
+  float o[8][4] = {};
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};
+
+  for (int j = 0; j < n_tiles; ++j) {
+    cp_async_wait<kStages - 2>();      // tile j (this thread's copies)
+    fence_async_shared();
+    __syncthreads();                   // everyone's; stage j - 1 is free
+    load_tile(j + kStages - 1);
+    const unsigned char* st = ring + (j % kStages) * Lay::kStageBytes;
+
+    float t[8][4];
+    qk_tile(qs, st, t);
+    if constexpr (kHasBias) {
+      const unsigned char* abt = st + 2 * kTileBytes;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const float2 b0 = bias_pair(abt, row0 + g, n * 8 + c2, AB());
+        const float2 b1 = bias_pair(abt, row0 + g + 8, n * 8 + c2, AB());
+        t[n][0] += b0.x;
+        t[n][1] += b0.y;
+        t[n][2] += b1.x;
+        t[n][3] += b1.y;
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) t[n][i] *= c;
+
+    uint32_t pf[4][4];
+    softmax_step<false>(t, m, l, o, pf);   // the row sum of the fp32 p
+    pv_tile(st + kTileBytes, pf, o);
+  }
+
+  float denom[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float s = quad_sum(l[h]);
+    denom[h] = s == 0.f ? 1.f : s;
+  }
+  store_o(out + base + static_cast<size_t>(q0) * kD, row0, lane, o, denom);
+}
+
+template <typename AB, bool kHasBias>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* ab, void* out, int B, int H, int L,
                    float scale, cudaStream_t stream) {
-  auto kernel = flash_attention_kernel<T, AB, kHasBias>;
-  const int smem = static_cast<int>(sizeof(Tiles));
+  auto kernel = flash_attention_kernel_tc<AB, kHasBias>;
+  const int smem = Layout<AB, kHasBias>::kSmemBytes;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(L / kBQ, B * H);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const AB*>(ab),
-      static_cast<T*>(out), L, scale);
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const AB*>(ab),
+      static_cast<__nv_bfloat16*>(out), L, scale);
   return cudaGetLastError();
+}
+
+}  // namespace tc
+
+template <typename T, typename AB, bool kHasBias>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const void* ab, void* out, int B, int H, int L,
+                   float scale, cudaStream_t stream) {
+  if constexpr (sizeof(T) == 2) {
+    return tc::launch<AB, kHasBias>(q, k, v, ab, out, B, H, L, scale, stream);
+  } else {
+    auto kernel = flash_attention_kernel<T, AB, kHasBias>;
+    const int smem = static_cast<int>(sizeof(Tiles));
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(L / kBQ, B * H);
+    kernel<<<grid, kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const AB*>(ab),
+        static_cast<T*>(out), L, scale);
+    return cudaGetLastError();
+  }
 }
 
 template <typename T>

@@ -71,7 +71,10 @@ def flash_rel_attention_plain(q, k, v, E, kv_mask, sm_scale: float,
                               left: int, num_buckets: int) -> torch.Tensor:
     """Dense reference, chunked over batch so a chunk's [b, H, L, L]
     scores stay near 256 MB. E is rounded to q's dtype first (as the
-    JAX wrapper does); the math is fp32; the output has q's dtype."""
+    JAX wrapper does); the math is fp32; the output has q's dtype. As in
+    both JAX kernels, p = exp(s - max) is rounded to v's dtype before
+    p @ v, the row sum adds the rounded p, and the sum is floored at
+    1e-37 (for fp32 inputs the rounding is the identity)."""
     B, H, L, _ = q.shape
     right = num_buckets - 1 - left
     pos = torch.arange(L, device=q.device)
@@ -86,7 +89,9 @@ def flash_rel_attention_plain(q, k, v, E, kv_mask, sm_scale: float,
         srel = qf @ Ef.T                                   # [b, H, L, P]
         s = qf @ kf.transpose(-1, -2) + srel[:, :, rows, bucket]
         s = s * sm_scale + (kv_mask[sl, None, None, :].float() - 1.0) * 1e9
-        out[sl] = (torch.softmax(s, dim=-1) @ vf).to(q.dtype)
+        p = torch.exp(s - s.amax(dim=-1, keepdim=True)).to(v.dtype).float()
+        denom = p.sum(dim=-1, keepdim=True).clamp_min(1e-37)
+        out[sl] = ((p @ vf) / denom).to(q.dtype)
     return out
 
 

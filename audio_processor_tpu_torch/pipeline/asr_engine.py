@@ -28,19 +28,19 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from audio_processor_tpu.io import native
-from audio_processor_tpu.models.tokenizer import (
-    CTCVocab, batch_decode, decode_words,
-)
-from audio_processor_tpu.pipeline.chunker import Chunk, chunk_batch
-from audio_processor_tpu.utils.text import remove_special_characters
 from audio_processor_tpu_torch.dsp.acoustic_features import (
     PAD, extract_features_batch, prepare_reflect_padded,
 )
 from audio_processor_tpu_torch.dsp.fbank import (
     HOP_LENGTH, STRIDE, log_mel_frontend,
 )
+from audio_processor_tpu_torch.io import native
 from audio_processor_tpu_torch.models import wav2vec2bert as w2v
+from audio_processor_tpu_torch.models.tokenizer import (
+    CTCVocab, batch_decode, decode_words,
+)
+from audio_processor_tpu_torch.pipeline.chunker import Chunk, chunk_batch
+from audio_processor_tpu_torch.utils.text import remove_special_characters
 
 logger = logging.getLogger(__name__)
 

@@ -27,15 +27,15 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from audio_processor_tpu.host.aggregation import (
-    aggregate_agent_sentiment, aggregate_client_sentiment,
-    call_id_from_chunk_filename,
-)
-from audio_processor_tpu.pipeline.chunker import pick_bucket
 from audio_processor_tpu_torch.dsp.acoustic_features import (
     extract_features_batch, prepare_reflect_padded,
 )
+from audio_processor_tpu_torch.host.aggregation import (
+    aggregate_agent_sentiment, aggregate_client_sentiment,
+    call_id_from_chunk_filename,
+)
 from audio_processor_tpu_torch.models import sklearn_infer as ski
+from audio_processor_tpu_torch.pipeline.chunker import pick_bucket
 
 logger = logging.getLogger(__name__)
 

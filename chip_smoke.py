@@ -6,19 +6,25 @@ Phases, each of which fails the run (non-zero exit) on any error:
 
 1. the card: name and power limit (nvidia-smi); no CUDA, no run;
 2. build: the port's CUDA kernels from ``audio_processor_tpu_torch/csrc``
-   (nvcc, sm_90a, one process per source, all at once) and the native
-   host I/O library (native/build.sh), in parallel;
+   (nvcc, sm_90a, one process per source, all at once; each kernel's
+   ``-Xptxas -v`` lines printed) and, beside them, the port's native host
+   I/O library (g++ over ``native/*.cpp`` into
+   ``audio_processor_tpu_torch/io/_native/``); then ``cuobjdump -sass``
+   must show warpgroup MMAs (HGMMA) in every bf16 tensor-core kernel;
 3. kernel vs plain: the flash-rel attention kernel against its plain
    PyTorch version on the card, fp32 and bf16 with ragged kv masks at
-   B=2, and bf16 at every (B, L) the main path gives the kernel (up to
-   B=48, H=16, L=1280) with a valid length per batch row; both times
-   at B=48, H=16, L=1280 on the inputs just checked;
+   B=2 (L from 64 to 1280, 320 among them), and bf16 at every (B, L) the
+   main path gives the kernel (up to B=48, H=16, L=1280) with a valid
+   length per batch row; both times at B=48, H=16, L=1280 on the inputs
+   just checked;
 3b. the flash kernel against its plain version: fp32 and bf16 at B=2,
-   L in {256, 512, 1280}, with the bias built as the model builds it
-   (ragged kv mask, one batch row wholly masked), and without a bias
-   (also at B=48, L=1280 bf16); bf16 at every (B, L) of the batch path
-   under ``flash``; both
-   times at B=48, H=16, L=1280 bf16 with the bias;
+   L in {64, 256, 320, 512, 1280}, with the bias built as the model
+   builds it (ragged kv mask, one batch row wholly masked), and without a
+   bias (L in {64, 320, 1280}, and at B=48, L=1280 bf16); bf16 at every
+   (B, L) of the batch path under ``flash``; both times at B=48, H=16,
+   L=1280 bf16 with the bias, and beside them the library call of the
+   same function (``scaled_dot_product_attention`` with the bias as its
+   mask), which the port never calls;
 3c. every flash-rel ablation kernel against its plain twin at H=16,
    L=1280, B=2 and B=48 (the wrong-by-design modes: the same NaN/inf
    pattern, equal where finite); both times of each at B=48;
@@ -39,8 +45,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
 
 Kernel launch counts are set to 0 just before each of the paths 5, 5b
 and 6 and read just after. The second-to-last line is the kernels' JSON
-record; the last line is ``{"ok": true, "device": {...}}``. Imports
-nothing of JAX.
+record (per kernel: launches, error, ms, plain ms, the bound computed
+from the timed inputs and what sets it, and the library call's ms or
+null); the last line is ``{"ok": true, "device": {...}}``. Imports
+nothing of JAX and nothing of the JAX package ``audio_processor_tpu``.
 """
 
 from __future__ import annotations
@@ -58,6 +66,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 REPO = Path(__file__).resolve().parent
 SOURCES = ("flash_rel_attention", "flash_attention", "flash_rel_parts")
@@ -76,6 +85,8 @@ FLASH_SHAPES = [(b, n) for b in (12, 24, 48) for n in (256, 1280)]
 # Ablation kernel vs twin (bf16 out, outputs ~0.5): one bf16 rounding of
 # the output and of p, at the same kv steps on both sides.
 PARTS_TOL = (4e-3, 1e-2)
+HBM_BYTES_S = 3.35e12   # H100 SXM HBM3 rate (NVIDIA's data sheet)
+BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core peak (same)
 ABLATION_VARIANTS = ("full", "noselect", "norel", "nomax", "nosoftmax",
                      "noexp", "kb640", "bare:ones", "bare:reduce",
                      "shipped", "stock")
@@ -85,15 +96,20 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def smi_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip() \
+        .splitlines()[0]
+
+
 def card() -> str:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; "
                  "this script runs only on a CUDA device")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
-    log(smi.splitlines()[0])
+    log(smi_line())
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, device "
         f"{torch.cuda.get_device_name(0)}")
@@ -104,20 +120,43 @@ def build() -> None:
     from audio_processor_tpu_torch import _build
 
     t0 = time.perf_counter()
-    native = subprocess.Popen(["bash", str(REPO / "native" / "build.sh")],
-                              stdout=subprocess.DEVNULL,
-                              stderr=subprocess.PIPE, text=True)
-    try:
-        _build.build_all(SOURCES)
-    finally:
-        _, err = native.communicate()
-    log(f"[build] {', '.join(SOURCES)} (parallel nvcc) and native/build.sh:"
-        f" {time.perf_counter() - t0:.1f} s")
+    libs = _build.build_all(SOURCES, native=True)
+    log(f"[build] {', '.join(SOURCES)} (parallel nvcc) and the native I/O "
+        f"library (g++, beside them): {time.perf_counter() - t0:.1f} s")
     for name in SOURCES:
         log(_build.build_log(name).rstrip())
-    if native.returncode != 0:
-        raise RuntimeError(f"native/build.sh failed ({native.returncode}):"
-                           f"\n{err}")
+    log(f"[build] native I/O library: {libs['native'].relative_to(REPO)}")
+    from audio_processor_tpu_torch.io import native
+
+    assert native.available(), "the port's native I/O library did not load"
+    tensor_core_sass(libs)
+
+
+def tensor_core_sass(libs: dict) -> None:
+    """The bf16 attention kernels run on the tensor cores: count the
+    warpgroup MMAs (HGMMA) and warp MMAs (HMMA) in each kernel's SASS
+    (cuobjdump) and fail unless every tensor-core kernel has HGMMA."""
+    from audio_processor_tpu_torch import _build
+
+    cuobjdump = Path(_build.nvcc_path()).parent / "cuobjdump"
+    for name in ("flash_rel_attention", "flash_attention"):
+        sass = subprocess.run([str(cuobjdump), "-sass", str(libs[name])],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        counts, fn = {}, None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                fn = line.split("Function :")[1].strip()
+                counts[fn] = {"HGMMA": 0, "HMMA": 0}
+            elif fn is not None:
+                ops = line.split("*/")[1].split()[:2] if "*/" in line else []
+                for key in counts[fn]:
+                    counts[fn][key] += any(op.startswith(key + ".")
+                                           for op in ops)
+        tc = {f: c for f, c in counts.items() if "_kernel_tc" in f}
+        for f, c in counts.items():
+            log(f"[build] SASS {name}: {f[:72]}: {c}")
+        assert tc and all(c["HGMMA"] > 0 for c in tc.values()), counts
 
 
 def _cuda_ms(fn, reps: int) -> float:
@@ -131,6 +170,23 @@ def _cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def attention_bound(q, ab=None, extra_bytes: int = 0,
+                    extra_flops: int = 0) -> tuple:
+    """(bound ms, "bytes" or "operations") of one attention call on q's
+    shape [B, H, L, 64]: q, k, v read once, o written once, ab (and the
+    extra inputs) read once, over the card's 3.35 TB/s; the two products,
+    4*B*H*L^2*d FLOP (plus extra_flops), over the 989 TFLOP/s bf16 peak
+    (H100 SXM, NVIDIA's data sheet)."""
+    B, H, L, d = q.shape
+    nbytes = 4 * q.numel() * q.element_size() + extra_bytes
+    if ab is not None:
+        nbytes += ab.numel() * ab.element_size()
+    t_bytes = nbytes / HBM_BYTES_S
+    t_ops = (4 * B * H * L * L * d + extra_flops) / BF16_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def _inputs(gen, B: int, L: int, P: int, left: int, dtype, ragged: str):
@@ -206,9 +262,10 @@ def kernel_vs_plain(seed: int) -> dict:
     gen = torch.Generator().manual_seed(seed)
     worst = 0.0
     # (L, P, left) at B=2: the main path's table at three bucket lengths,
-    # the largest table, and two edges (one 64-row tile with a one-row
-    # table; right = 0 with batch row 0 wholly masked).
-    cases = [(L, 73, 64) for L in (256, 512, 1280)] + [
+    # L = 64 and 320 (one q tile; an odd number of them), the largest
+    # table, and two edges (one 64-row tile with a one-row table; right =
+    # 0 with batch row 0 wholly masked).
+    cases = [(L, 73, 64) for L in (64, 256, 320, 512, 1280)] + [
         (512, 128, 100), (64, 1, 0), (192, 9, 8)]
     for dtype in (torch.float32, torch.bfloat16):
         for L, P, left in cases:
@@ -238,7 +295,12 @@ def kernel_vs_plain(seed: int) -> dict:
 
     ms, plain_ms = _turns(kern, plain,
                           f"[kernel] time B={B} H={H} L={L} d=64 bf16")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": None,
+            "bound": attention_bound(q, extra_bytes=E.numel() * 2
+                                     + mask.numel() * 4,
+                                     extra_flops=2 * q[..., 0].numel()
+                                     * P * 64)}
 
 
 def flash_vs_plain(seed: int) -> dict:
@@ -272,11 +334,12 @@ def flash_vs_plain(seed: int) -> dict:
 
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
-        for L in (256, 512, 1280):
+        for L in (64, 256, 320, 512, 1280):
             worst = max(worst, check(case(2, L, dtype, "tail"),
                                      "bias, ragged mask, row 0 masked"))
-        worst = max(worst, check(case(2, 1280, dtype, "tail", bias=False),
-                                 "no bias"))
+        for L in (64, 320, 1280):
+            worst = max(worst, check(case(2, L, dtype, "tail", bias=False),
+                                     "no bias"))
     # The no-bias instance at the ablation path's shape (its "stock").
     worst = max(worst, check(case(48, 1280, torch.bfloat16, "rows",
                                   bias=False), "no bias"))
@@ -291,7 +354,17 @@ def flash_vs_plain(seed: int) -> dict:
         lambda: fa.flash_attention(q, k, v, ab, 0.125),
         lambda: fa.flash_attention_plain(q, k, v, ab, 0.125),
         "[flash] time B=48 H=16 L=1280 d=64 bf16, bf16 bias")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+    # The one PyTorch call of the same function, on the same inputs, as a
+    # yardstick (the port never calls it): SDPA computes q.k^T * scale +
+    # mask, so the bias is scaled outside the timed call.
+    mask_ab = ab * 0.125
+    library_ms = min(_cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask_ab, scale=0.125), 20) for _ in range(2))
+    log(f"[flash] library scaled_dot_product_attention(attn_mask=ab*scale):"
+        f" {library_ms:.4f} ms")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms,
+            "bound": attention_bound(q, ab=ab)}
 
 
 def _same_nonfinite(out, ref, label: str) -> float:
@@ -367,14 +440,18 @@ def parts_vs_plain(seed: int) -> dict:
                              lambda: frp.plain(name, *base),
                              f"[parts] time {name:11s} B=48 H=16 L=1280",
                              reps=(5, 2))
-    return {"max_abs_err": worst, "times": times}
+    q, _, _, s_rel, mask = base
+    bounds = {"bare": attention_bound(q),
+              "rel": attention_bound(q, extra_bytes=s_rel.numel() * 4
+                                     + mask.numel() * 4)}
+    return {"max_abs_err": worst, "times": times, "bounds": bounds}
 
 
 def _write_calls(root: Path, seed: int, n: int, dur: float,
                  n_8k: int) -> float:
     """n stereo calls of ``dur`` seconds (the last n_8k at 8 kHz):
     tone bursts over noise, alternating speakers. Returns audio s."""
-    from audio_processor_tpu.io import wav
+    from audio_processor_tpu_torch.io import wav
 
     rng = np.random.default_rng(seed)
     root.mkdir(parents=True)
@@ -394,13 +471,14 @@ def small_reference(seed: int, impl: str) -> None:
     (CUDA kernel) and on the CPU (plain path), fp32, same inputs.
     ``impl`` is the configured attention_impl: "auto" (flash_rel on the
     card, xla on the CPU) or "flash" (on both)."""
-    from audio_processor_tpu.config import PipelineConfig
-    from audio_processor_tpu.io.decode import load_audio
-    from audio_processor_tpu.models.tokenizer import CTCVocab
-    from audio_processor_tpu.pipeline.chunker import chunk_batch
+    from audio_processor_tpu_torch.config import PipelineConfig
+    from audio_processor_tpu_torch.io.decode import load_audio
     from audio_processor_tpu_torch.models import wav2vec2bert as w2v
+    from audio_processor_tpu_torch.models.tokenizer import CTCVocab
     from audio_processor_tpu_torch.pipeline.asr_engine import ASREngine
-    from audio_processor_tpu_torch.pipeline.chunker import prepare_and_split
+    from audio_processor_tpu_torch.pipeline.chunker import (
+        chunk_batch, prepare_and_split,
+    )
 
     cfg = PipelineConfig.from_dict({
         "enable_mixed_precision": False, "chunk_duration_sec": 10.0,
@@ -491,7 +569,7 @@ def main_path(seed: int, impl: str, n_calls: int, n_8k: int) -> dict:
     """The batch path at full width under the configured attention_impl
     ("auto": the flash_rel kernel; "flash": the flash kernel on a
     materialised bias); launch counts set to 0 just before the run."""
-    from audio_processor_tpu.config import PipelineConfig
+    from audio_processor_tpu_torch.config import PipelineConfig
     from audio_processor_tpu_torch.dsp.fbank import max_num_frames
     from audio_processor_tpu_torch.models.wav2vec2bert import W2VBertConfig
     from audio_processor_tpu_torch.pipeline.engine import DataProcessor
@@ -611,20 +689,25 @@ def main() -> int:
     assert rel["other"] == 0 and flash["other"] == 0
     ablation = ablation_path(args.seed)
     assert "jax" not in sys.modules
+    assert not any(m.split(".")[0] == "audio_processor_tpu"
+                   for m in sys.modules), "the JAX package was imported"
 
     src = "audio_processor_tpu_torch/csrc/"
     tool = "tools/profile_kernel_parts.py"
 
     def row(name, source, replaces, launches, rec):
+        bound_ms, bound_by = rec["bound"]
         return {"name": name, "route": "cuda", "source": src + source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
-                "plain_ms": rec["plain_ms"]}
+                "plain_ms": rec["plain_ms"], "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": rec["library_ms"]}
 
     def parts_row(name, modes, timed, replaces):
         ms, plain_ms = parts["times"][timed]
         rec = {"max_abs_err": max(parts["max_abs_err"][m] for m in modes),
-               "ms": ms, "plain_ms": plain_ms}
+               "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+               "bound": parts["bounds"]["bare" if name == "bare" else "rel"]}
         return row(f"flash_rel_parts.{name}", "flash_rel_parts.cu",
                    replaces, ablation["launches"][name], rec)
 
@@ -648,6 +731,7 @@ def main() -> int:
         parts_row("variant", VARIANT_MODES, "full", f"{tool}:37"),
     ]
     assert all(k["launches"] > 0 for k in kernels), kernels
+    log(smi_line())            # again here, beside the numbers it qualifies
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -6,12 +6,13 @@ import numpy as np
 import pytest
 import torch
 
-from audio_processor_tpu.config import PipelineConfig
+from audio_processor_tpu import config as jconfig
 from audio_processor_tpu.models import wav2vec2bert as jw
-from audio_processor_tpu.models.tokenizer import CTCVocab
-from audio_processor_tpu.pipeline.chunker import chunk_batch, split_audio
+from audio_processor_tpu_torch.config import PipelineConfig
 from audio_processor_tpu_torch.models import wav2vec2bert as tw
+from audio_processor_tpu_torch.models.tokenizer import CTCVocab
 from audio_processor_tpu_torch.pipeline.asr_engine import ASREngine
+from audio_processor_tpu_torch.pipeline.chunker import chunk_batch, split_audio
 from audio_processor_tpu_torch.pipeline.engine import DataProcessor
 
 from tests.conftest import make_stereo_call
@@ -41,6 +42,7 @@ def engines():
     cfg = PipelineConfig(enable_mixed_precision=False,
                          chunk_duration_sec=4.0, overlap_sec=1.0,
                          length_buckets_sec=(2.0, 4.0), chunk_batch_size=4)
+    jcfg_pipe = jconfig.PipelineConfig.from_dict(cfg.to_dict())
     vocab = CTCVocab.darija_default()
     jcfg = jw.W2VBertConfig(vocab_size=len(vocab), **KW)
     params = jw.init_params(jax.random.PRNGKey(0), jcfg)
@@ -48,7 +50,7 @@ def engines():
     model = tw.Wav2Vec2Bert(tcfg)
     model.load_state_dict(tw.params_from_jax(
         jax.tree.map(np.asarray, params), tcfg))
-    jeng = JaxEngine(cfg, params=params, model_cfg=jcfg, vocab=vocab)
+    jeng = JaxEngine(jcfg_pipe, params=params, model_cfg=jcfg, vocab=vocab)
     teng = ASREngine(cfg, device="cpu", model=model, vocab=vocab)
     return jeng, teng
 

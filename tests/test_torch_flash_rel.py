@@ -92,6 +92,27 @@ def test_plain_bf16_inputs_give_bf16_output():
     torch.testing.assert_close(out.float(), ref, atol=1e-2, rtol=2 ** -8)
 
 
+def test_plain_bf16_matches_jax_kernel_bf16():
+    """bf16 q/k/v/E through both: the JAX kernel rounds p to bf16 for
+    p @ v and sums the rounded p (its ones-lane), and so does the plain
+    version (and the CUDA kernel it stands for). Both outputs are bf16;
+    tolerance (1e-2, 1e-2), the bf16 bound chip_smoke.py holds the
+    kernel to."""
+    import jax.numpy as jnp
+
+    q, k, v, E, m = _inputs(11, 2, 2, 256, 73, valid=177)
+    qb, kb, vb, Eb = (torch.from_numpy(a).to(torch.bfloat16)
+                      for a in (q, k, v, E))
+    out = fra.flash_rel_attention(qb, kb, vb, Eb, torch.from_numpy(m),
+                                  0.125, 64, 73).float().numpy()
+    ref = np.asarray(jax_flash_rel(
+        *(jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+          for t in (qb, kb, vb, Eb)),
+        jnp.asarray(m), 0.125, 64, 73, interpret=True,
+        variant="onepass").astype(jnp.float32))
+    np.testing.assert_allclose(out, ref, atol=1e-2, rtol=1e-2)
+
+
 def test_fully_masked_rows_stay_finite():
     """The additive -1e9 mask (not -inf) keeps every row finite."""
     q, k, v, E, m = (torch.from_numpy(a)

@@ -2,7 +2,8 @@
 interpreter (no tests/conftest.py, which imports JAX): the port's
 DataProcessor over three stereo WAVs, one of them at 8 kHz (resampled
 on the host), with an injected tiny engine on an explicit CPU device.
-Checks the CSV rows, the markers, and that JAX was never imported."""
+Checks the CSV rows, the markers, and that neither JAX nor the JAX
+package was ever imported."""
 
 import csv
 import json
@@ -24,10 +25,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from audio_processor_tpu.config import PipelineConfig
-from audio_processor_tpu.io import wav
-from audio_processor_tpu.models.tokenizer import CTCVocab
+from audio_processor_tpu_torch.config import PipelineConfig
+from audio_processor_tpu_torch.io import wav
 from audio_processor_tpu_torch.models import wav2vec2bert as w2v
+from audio_processor_tpu_torch.models.tokenizer import CTCVocab
 from audio_processor_tpu_torch.pipeline.asr_engine import ASREngine
 from audio_processor_tpu_torch.pipeline.engine import DataProcessor
 
@@ -61,7 +62,10 @@ finally:
 print(json.dumps({"succeeded": n, "dispatches": engine.dispatches,
                   "stats": {k: v for k, v in proc.stats.items()
                             if isinstance(v, int)},
-                  "jax_imported": "jax" in sys.modules}))
+                  "jax_imported": "jax" in sys.modules,
+                  "jax_package_imported": any(
+                      m.split(".")[0] == "audio_processor_tpu"
+                      for m in sys.modules)}))
 """
 
 
@@ -72,6 +76,7 @@ def test_port_pipeline_runs_without_jax(tmp_path):
     assert r.returncode == 0, r.stderr[-4000:]
     out = json.loads(r.stdout.strip().splitlines()[-1])
     assert out["jax_imported"] is False
+    assert out["jax_package_imported"] is False
     assert out["succeeded"] == 3
     assert out["stats"]["files_success"] == 3
     assert out["stats"]["errors"] == 0

@@ -7,8 +7,9 @@ import numpy as np
 import pytest
 import torch
 
-from audio_processor_tpu.config import PipelineConfig
+from audio_processor_tpu import config as jconfig
 from audio_processor_tpu.pipeline import sentiment as jax_sentiment
+from audio_processor_tpu_torch.config import PipelineConfig
 from audio_processor_tpu_torch.pipeline import sentiment as port_sentiment
 
 from tests.test_sentiment import AGENT_LABELS, CLIENT_LABELS, _save_acoustic
@@ -52,7 +53,8 @@ def analyzers(tmp_path_factory):
         agent_acoustic_scaler_path=str(base / "forest_scaler.joblib"))
     return (port_sentiment.SentimentAnalyzer(cfg,
                                              device=torch.device("cpu")),
-            jax_sentiment.SentimentAnalyzer(cfg))
+            jax_sentiment.SentimentAnalyzer(
+                jconfig.PipelineConfig.from_dict(cfg.to_dict())))
 
 
 def _chunks(seed, n=4):

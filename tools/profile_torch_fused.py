@@ -24,7 +24,7 @@ events are never added to kernel time. Prints:
   of the window;
 - the top device kernels by time.
 
-Imports nothing of JAX. Needs CUDA.
+Imports nothing of JAX or of the JAX package. Needs CUDA.
 """
 
 from __future__ import annotations
@@ -96,7 +96,7 @@ def breakdown(trace: dict) -> dict:
 
 
 def make_batch(engine, seed: int):
-    from audio_processor_tpu.pipeline.chunker import Chunk, chunk_batch
+    from audio_processor_tpu_torch.pipeline.chunker import Chunk, chunk_batch
 
     rng = np.random.default_rng(seed)
     n = engine.device_chunks
@@ -120,7 +120,7 @@ def main() -> int:
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_torch_fused: needs a CUDA device")
-    from audio_processor_tpu.config import PipelineConfig
+    from audio_processor_tpu_torch.config import PipelineConfig
     from audio_processor_tpu_torch.pipeline.asr_engine import ASREngine
 
     cfg = PipelineConfig.from_dict({"chunk_batch_size": 16,
@@ -172,7 +172,8 @@ def main() -> int:
     for name, (ms, n) in sorted(b["by_name"].items(),
                                 key=lambda x: -x[1][0])[:15]:
         print(f"  {ms:9.2f} ms {n:5d}x  {name[:110]}")
-    assert "jax" not in sys.modules
+    assert not any(m == "jax" or m.split(".")[0] == "audio_processor_tpu"
+                   for m in sys.modules)
     return 0
 
 
