@@ -1,5 +1,6 @@
 // Tensor-core tile machinery shared by the bf16 instances of the port's
-// streaming attention kernels (flash_rel_attention.cu, flash_attention.cu).
+// streaming attention kernels (flash_rel_attention.cu, flash_attention.cu)
+// and by the flash-rel ablation kernels (flash_rel_parts.cu).
 //
 // Layout: one block of one warpgroup (4 warps, 128 threads) per (batch b,
 // head h, 64-row q tile), walking the kv axis in 64-column tiles. Both
@@ -243,37 +244,92 @@ __device__ __forceinline__ void pv_tile(const unsigned char* vs,
   wg_wait0();
 }
 
-// One online-softmax step on the scores t (already in the log2 domain:
-// scaled by log2 e) of the thread's two rows. Updates the running max m
-// and the thread's partial row sums l (the quad's four partial sums are
-// added at the end), rescales o, and leaves p, rounded to bf16 and packed
-// as the A fragments of p . V, in pf. kSumRounded: the row sum adds the
-// bf16-rounded p (as the TPU kernels' ones-lane sum does) rather than the
-// fp32 p.
-template <bool kSumRounded>
-__device__ __forceinline__ void softmax_step(float (&t)[8][4], float (&m)[2],
-                                             float (&l)[2], float (&o)[8][4],
-                                             uint32_t (&pf)[4][4]) {
-  float mx[2] = {m[0], m[1]};
+// The softmax of a kv step, in pieces. The shipped kernels run kOnline
+// on one 64-column tile a step (softmax_step); the ablation kernels of
+// flash_rel_parts.cu run every mode on steps of several tiles:
+//   kOnline    p = exp2(t - m), alpha = exp2(m_old - m)  (t in the log2
+//              domain: scaled by log2 e)
+//   kNoMax     p = exp2(t), alpha = 1                     (log2 domain)
+//   kNoSoftmax p = t, alpha = 1                           (natural domain)
+//   kNoExp     p = (t - m) * 0.5, alpha = (m_old - m) * 0.5 (natural)
+// where m is the running row max over the steps so far, this step's
+// included. A step: tile_max over each of its tiles (modes with a max),
+// step_max, rescale_o, then tile_p over each tile (p . V after each),
+// and l = alpha * l + rs.
+enum Softmax { kOnline, kNoMax, kNoSoftmax, kNoExp };
+
+template <int kMode>
+__host__ __device__ constexpr bool has_max() {
+  return kMode == kOnline || kMode == kNoExp;
+}
+
+// Folds a tile's scores into the thread's row maxima mx (rows g, g + 8).
+__device__ __forceinline__ void tile_max(const float (&t)[8][4],
+                                         float (&mx)[2]) {
 #pragma unroll
   for (int n = 0; n < 8; ++n) {
     mx[0] = fmaxf(mx[0], fmaxf(t[n][0], t[n][1]));
     mx[1] = fmaxf(mx[1], fmaxf(t[n][2], t[n][3]));
   }
-  float alpha[2];
+}
+
+// The step's row maxima (mx: this thread's, folded from m and every tile
+// of the step) become the running max m; alpha is the factor of the old
+// l and o. Modes without a max: alpha = 1.
+template <int kMode>
+__device__ __forceinline__ void step_max(float (&mx)[2], float (&m)[2],
+                                         float (&alpha)[2]) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    mx[h] = quad_max(mx[h]);
-    alpha[h] = ex2(m[h] - mx[h]);          // 0 on the first step (m = -inf)
-    m[h] = mx[h];
+    if constexpr (has_max<kMode>()) {
+      mx[h] = quad_max(mx[h]);
+      // kOnline: 0 on the first step (m = -inf); kNoExp: -inf there,
+      // and -inf * 0 starts l and o at NaN, as the TPU kernel does.
+      alpha[h] = kMode == kOnline ? ex2(m[h] - mx[h])
+                                  : (m[h] - mx[h]) * 0.5f;
+      m[h] = mx[h];
+    } else {
+      alpha[h] = 1.f;
+    }
   }
-  float rs[2] = {0.f, 0.f};
+}
+
+template <int kMode>
+__device__ __forceinline__ void rescale_o(const float (&alpha)[2],
+                                          float (&o)[8][4]) {
+  if constexpr (has_max<kMode>()) {
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      o[n][0] *= alpha[0];
+      o[n][1] *= alpha[0];
+      o[n][2] *= alpha[1];
+      o[n][3] *= alpha[1];
+    }
+  }
+}
+
+template <int kMode>
+__device__ __forceinline__ float p_of(float t, float m) {
+  if constexpr (kMode == kOnline) return ex2(t - m);
+  else if constexpr (kMode == kNoMax) return ex2(t);
+  else if constexpr (kMode == kNoSoftmax) return t;
+  else return (t - m) * 0.5f;
+}
+
+// p of one tile of scores t, rounded to bf16 and packed as the A
+// fragments of p . V in pf; adds the tile's part of the thread's two row
+// sums to rs. kSumRounded: the row sum adds the bf16-rounded p (as the
+// TPU kernels' ones-lane sum does) rather than the fp32 p.
+template <bool kSumRounded, int kMode>
+__device__ __forceinline__ void tile_p(const float (&t)[8][4],
+                                       const float (&m)[2], float (&rs)[2],
+                                       uint32_t (&pf)[4][4]) {
 #pragma unroll
   for (int n = 0; n < 8; ++n) {
-    const float p0 = ex2(t[n][0] - mx[0]);
-    const float p1 = ex2(t[n][1] - mx[0]);
-    const float p2 = ex2(t[n][2] - mx[1]);
-    const float p3 = ex2(t[n][3] - mx[1]);
+    const float p0 = p_of<kMode>(t[n][0], m[0]);
+    const float p1 = p_of<kMode>(t[n][1], m[0]);
+    const float p2 = p_of<kMode>(t[n][2], m[1]);
+    const float p3 = p_of<kMode>(t[n][3], m[1]);
     const uint32_t lo = pack_bf16(p0, p1);   // row g
     const uint32_t hi = pack_bf16(p2, p3);   // row g + 8
     if (kSumRounded) {
@@ -287,15 +343,25 @@ __device__ __forceinline__ void softmax_step(float (&t)[8][4], float (&m)[2],
     pf[n >> 1][(n & 1) * 2] = lo;
     pf[n >> 1][(n & 1) * 2 + 1] = hi;
   }
+}
+
+// One online-softmax step of one tile, the shipped kernels' step: the
+// scores t (already in the log2 domain) of the thread's two rows update
+// the running max m and the thread's partial row sums l (the quad's four
+// partial sums are added at the end), o is rescaled, and p lands in pf.
+template <bool kSumRounded>
+__device__ __forceinline__ void softmax_step(float (&t)[8][4], float (&m)[2],
+                                             float (&l)[2], float (&o)[8][4],
+                                             uint32_t (&pf)[4][4]) {
+  float mx[2] = {m[0], m[1]};
+  tile_max(t, mx);
+  float alpha[2];
+  step_max<kOnline>(mx, m, alpha);
+  float rs[2] = {0.f, 0.f};
+  tile_p<kSumRounded, kOnline>(t, m, rs, pf);
 #pragma unroll
   for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + rs[h];
-#pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    o[n][0] *= alpha[0];
-    o[n][1] *= alpha[0];
-    o[n][2] *= alpha[1];
-    o[n][3] *= alpha[1];
-  }
+  rescale_o<kOnline>(alpha, o);
 }
 
 // o / denom for the thread's two rows into out (bf16 [rows, 64]), rows

@@ -1,5 +1,6 @@
-// Tile machinery shared by the port's streaming attention kernels
-// (flash_rel_attention.cu, flash_attention.cu, flash_rel_parts.cu).
+// CUDA-core tile machinery of the fp32 instances of the port's streaming
+// attention kernels (flash_rel_attention.cu, flash_attention.cu); their
+// bf16 instances run on the tensor cores (attention_tc.cuh).
 //
 // Layout: one block of 256 threads
 // per (batch b, head h, 64-row q tile), walking the kv axis in 64-column
@@ -89,13 +90,6 @@ __device__ __forceinline__ void load_transposed(float (*dst)[kLd],
                                                 int tid) {
   for (int i = tid; i < kBQ * kD; i += kThreads)
     dst[i % kD][i / kD] = to_f32(src[i]);
-}
-
-template <typename T>
-__device__ __forceinline__ void load_v(Tiles& s, const T* __restrict__ src,
-                                       int tid) {
-  for (int i = tid; i < kBK * kD; i += kThreads)
-    s.v[i / kD][i % kD] = to_f32(src[i]);
 }
 
 // The k tile (transposed) and the v tile of one kv step in one pass,

@@ -31,7 +31,11 @@ which its ``full``, ``noselect`` and ``kb640`` kernels no longer trace.
 
 CPU tensors take the plain twins (:func:`plain`: the same step
 recurrence in fp32 PyTorch, chunked over batch); CUDA tensors launch
-``csrc/flash_rel_parts.cu`` or raise. ``variant.launches``,
+``csrc/flash_rel_parts.cu`` or raise. That kernel has the design of the
+main path's bf16 flash_rel kernel (tensor cores, ``csrc/attention_tc.cuh``:
+wgmma for both products, p in registers, a cp.async ring), with each
+mode's step of 256 or 640 columns, so the differences between configs
+price the parts of the kernel the main path runs. ``variant.launches``,
 ``kb640.launches`` and ``bare.launches`` count kernel launches.
 """
 

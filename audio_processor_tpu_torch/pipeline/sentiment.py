@@ -11,7 +11,9 @@ Same coordinator, output keys and reference quirks as the JAX package:
 
 The acoustic features normally arrive precomputed by the fused ASR
 program; otherwise :meth:`AcousticSentimentAnalyzer.extract_features`
-runs the port's torch extractor on the analyzer's device. The
+runs the port's torch extractor on the analyzer's device, ``cuda``
+unless the caller asks for another (as ``DataProcessor`` does; where
+there is no CUDA device it raises and never falls back to the CPU). The
 classifier heads run on the host in numpy, as in the reference.
 
 Text sentiment (the BERT classifiers) is not ported yet: unconfigured it
@@ -70,7 +72,7 @@ class TextSentimentAnalyzer:
 class AcousticSentimentAnalyzer:
     """SVM (client) / RandomForest (agent) on 38-dim acoustic features."""
 
-    def __init__(self, config, device: torch.device = torch.device("cpu")):
+    def __init__(self, config, device="cuda"):
         self.config = config
         self.device = torch.device(device)
         self.models: Dict[str, Optional[Dict[str, Any]]] = {
@@ -267,7 +269,7 @@ class SentimentAnalyzer:
     """Coordinator; the JAX package's public API and output keys."""
 
     def __init__(self, config, db_manager=None, topic_classifier=None,
-                 device: torch.device = torch.device("cpu")):
+                 device="cuda"):
         self.config = config
         self.db_manager = db_manager
         self.device = torch.device(device)

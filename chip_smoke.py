@@ -10,7 +10,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
    ``-Xptxas -v`` lines printed) and, beside them, the port's native host
    I/O library (g++ over ``native/*.cpp`` into
    ``audio_processor_tpu_torch/io/_native/``); then ``cuobjdump -sass``
-   must show warpgroup MMAs (HGMMA) in every bf16 tensor-core kernel;
+   must show warpgroup MMAs (HGMMA) in every bf16 tensor-core kernel and
+   in every one of the nine instances of the ablation kernel;
 3. kernel vs plain: the flash-rel attention kernel against its plain
    PyTorch version on the card, fp32 and bf16 with ragged kv masks at
    B=2 (L from 64 to 1280, 320 among them), and bf16 at every (B, L) the
@@ -27,7 +28,11 @@ Phases, each of which fails the run (non-zero exit) on any error:
    mask), which the port never calls;
 3c. every flash-rel ablation kernel against its plain twin at H=16,
    L=1280, B=2 and B=48 (the wrong-by-design modes: the same NaN/inf
-   pattern, equal where finite); both times of each at B=48;
+   pattern, equal where finite); both times of each at B=48, and beside
+   them the library call of the same function
+   (``scaled_dot_product_attention``: bare without a mask, full and
+   kb640 with the additive mask of s_rel and kv_mask, norel with the kv
+   mask's term alone), which the port never calls;
 4. small reference: a tiny model through the port's ASR engine on the
    card (kernel path) and on the CPU (plain path), same weights and
    audio: masks equal, ids equal off near-ties, features close;
@@ -135,11 +140,13 @@ def build() -> None:
 def tensor_core_sass(libs: dict) -> None:
     """The bf16 attention kernels run on the tensor cores: count the
     warpgroup MMAs (HGMMA) and warp MMAs (HMMA) in each kernel's SASS
-    (cuobjdump) and fail unless every tensor-core kernel has HGMMA."""
+    (cuobjdump) and fail unless every tensor-core kernel has HGMMA; the
+    ablation source holds only such kernels, one per config."""
     from audio_processor_tpu_torch import _build
+    from audio_processor_tpu_torch.models.flash_rel_parts import MODES
 
     cuobjdump = Path(_build.nvcc_path()).parent / "cuobjdump"
-    for name in ("flash_rel_attention", "flash_attention"):
+    for name in ("flash_rel_attention", "flash_attention", "flash_rel_parts"):
         sass = subprocess.run([str(cuobjdump), "-sass", str(libs[name])],
                               capture_output=True, text=True,
                               check=True).stdout
@@ -157,6 +164,8 @@ def tensor_core_sass(libs: dict) -> None:
         for f, c in counts.items():
             log(f"[build] SASS {name}: {f[:72]}: {c}")
         assert tc and all(c["HGMMA"] > 0 for c in tc.values()), counts
+        if name == "flash_rel_parts":
+            assert len(tc) == len(counts) == len(MODES), counts
 
 
 def _cuda_ms(fn, reps: int) -> float:
@@ -444,7 +453,45 @@ def parts_vs_plain(seed: int) -> dict:
     bounds = {"bare": attention_bound(q),
               "rel": attention_bound(q, extra_bytes=s_rel.numel() * 4
                                      + mask.numel() * 4)}
-    return {"max_abs_err": worst, "times": times, "bounds": bounds}
+    return {"max_abs_err": worst, "times": times, "bounds": bounds,
+            "library": parts_library(frp, base)}
+
+
+def parts_library(frp, args) -> dict:
+    """The one PyTorch call of each ablation function on the same inputs,
+    as a yardstick (the port never calls it): SDPA computes
+    softmax(q.k^T * scale + mask) v, so the mask is the twin's additive
+    term, ``rel * scale + (kv_mask - 1) * 1e9`` in bf16 (as the flash
+    row's call), built outside the timed call: full and kb640 (the same
+    function) with the saturated bias, norel with the kv term alone
+    (broadcast over heads and rows), bare with none. Each library output
+    is logged against the twin, for information."""
+    q, k, v, s_rel, kv_mask = args
+    B, H, L, _ = q.shape
+    pos = torch.arange(L, device=q.device)
+    idx = (pos[None, :] - pos[:, None]).clamp(
+        -frp.LEFT, frp.NUM_BUCKETS - 1 - frp.LEFT) + frp.LEFT
+    kv_term = (kv_mask[:, None, None, :] - 1.0) * 1e9
+    full_mask = torch.empty(B, H, L, L, dtype=torch.bfloat16,
+                            device=q.device)
+    for b in range(B):
+        full_mask[b] = (s_rel[b].gather(-1, idx.expand(H, L, L))
+                        * frp.SCALE + kv_term[b])
+    masks = {"full": full_mask, "norel": kv_term.to(torch.bfloat16),
+             "bare:ones": None}
+    out = {}
+    for name, mask in masks.items():
+        def call(mask=mask):
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                  scale=frp.SCALE)
+        ref = frp.plain(name, q, k, v, s_rel, kv_mask)
+        err = float((call().float() - ref.float()).abs().max())
+        out[name] = min(_cuda_ms(call, 10) for _ in range(2))
+        log(f"[parts] library scaled_dot_product_attention for {name:9s}: "
+            f"{out[name]:.4f} ms; max_abs vs the twin {err:.3e}")
+    del full_mask, masks
+    out["kb640"] = out["full"]
+    return out
 
 
 def _write_calls(root: Path, seed: int, n: int, dur: float,
@@ -706,7 +753,8 @@ def main() -> int:
     def parts_row(name, modes, timed, replaces):
         ms, plain_ms = parts["times"][timed]
         rec = {"max_abs_err": max(parts["max_abs_err"][m] for m in modes),
-               "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+               "ms": ms, "plain_ms": plain_ms,
+               "library_ms": parts["library"][timed],
                "bound": parts["bounds"]["bare" if name == "bare" else "rel"]}
         return row(f"flash_rel_parts.{name}", "flash_rel_parts.cu",
                    replaces, ablation["launches"][name], rec)

@@ -129,6 +129,21 @@ def test_extract_features_on_device_matches_jax(analyzers):
     np.testing.assert_allclose(got / scale, want / scale, atol=2e-4)
 
 
+def test_default_device_is_cuda_and_never_falls_back_to_cpu():
+    """With no device given, both analyzers target ``cuda`` (as
+    ``DataProcessor`` does); without CUDA a feature extraction raises
+    instead of running on the CPU."""
+    cfg = PipelineConfig()
+    coordinator = port_sentiment.SentimentAnalyzer(cfg)
+    assert coordinator.device == torch.device("cuda")
+    assert coordinator.acoustic_analyzer.device == torch.device("cuda")
+    acoustic = port_sentiment.AcousticSentimentAnalyzer(cfg)
+    assert acoustic.device == torch.device("cuda")
+    if not torch.cuda.is_available():
+        with pytest.raises((AssertionError, RuntimeError)):
+            acoustic.extract_features([np.zeros(16000, np.float32)], 16000)
+
+
 def test_configured_text_model_raises():
     cfg = PipelineConfig(client_text_model_path="/models/c",
                          agent_text_model_path="/models/a")

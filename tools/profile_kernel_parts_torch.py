@@ -2,7 +2,7 @@
 """Ablate the flash-rel attention kernel's cost components on one CUDA
 card (the PyTorch port's counterpart of tools/profile_kernel_parts.py).
 
-    python3 tools/profile_kernel_parts_torch.py [variants...]
+    python3 tools/profile_kernel_parts_torch.py [variants...] [--root DIR]
 
 Variants (timing only; the numerics of the ablated ones are wrong by
 design), default ``full noselect norel``:
@@ -21,17 +21,34 @@ design), default ``full noselect norel``:
              bias; the Pallas block sizes do not apply to the CUDA
              kernel's fixed 64 x 64 tiles and are ignored
 
+The ablation variants run csrc/flash_rel_parts.cu, which has the design
+of ``shipped`` (tensor cores, wgmma for both products, p in registers)
+but its step of 256 (kb640: 640) columns for one max and one rescale,
+four score tiles live where ``shipped`` keeps one; kb640 computes each
+step's scores twice (a max pass, then p). So a difference between two
+variants prices a part of the main path's kernel, and ``shipped`` −
+``full`` prices its in-kernel bucket logits together with that layout.
+
 B=48, H=16, L=1280, D=64, bf16 q/k/v and fp32 s_rel ~ 0.05 N(0, 1), kv
 mask all ones. Each timed point runs the kernel 8 times with a data
 dependency (q += 0 * out) between CUDA events; best of 4, after one
 warm-up. The dependency step alone (two elementwise passes over q) is
 timed the same way and subtracted. Prints ms per call, net and gross,
-and x24 (one per encoder layer). Imports nothing of JAX. Needs CUDA.
+and x24 (one per encoder layer); the last line is one JSON object with
+the net times, the step, the card's name and power limit and the
+package's directory. ``--root`` imports ``audio_processor_tpu_torch``
+from another checkout (for example the parent commit unpacked with
+``git archive``), whose kernels build into that tree, so that one
+command can time two trees in turns: parent, change, change, parent,
+each a process of its own. Imports nothing of JAX. Needs CUDA.
 """
 
 from __future__ import annotations
 
+import argparse
+import json
 import os
+import subprocess
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(
@@ -118,13 +135,13 @@ def bench(call, args) -> float:
 
 def run(variants, seed: int = 0) -> dict:
     """Time each variant; returns {variant: ms per call} net of the
-    dependency step."""
+    dependency step (under "step": the step alone)."""
     q, k, v, s_rel, kv_mask, E = inputs(seed)
     args = (q, k, v, s_rel, kv_mask)
     step = bench(lambda q, *_: q, args)
     print(f"{'step':12s}: {step:7.3f} ms (the dependency step alone; "
           f"subtracted below)", flush=True)
-    net = {}
+    net = {"step": step}
     for name in variants:
         gross = bench(call_for(name, E), args)
         net[name] = gross - step
@@ -135,13 +152,28 @@ def run(variants, seed: int = 0) -> dict:
 
 
 def main(argv=None) -> int:
-    variants = (sys.argv[1:] if argv is None else argv) or list(DEFAULT)
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("variants", nargs="*", default=list(DEFAULT))
+    ap.add_argument("--root", default=None)
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("profile_kernel_parts_torch: needs a CUDA device")
-    print(f"device: {torch.cuda.get_device_name(0)}; B={B} H={H} L={L} "
-          f"D={D} bf16", flush=True)
-    run(variants)
+    if args.root:
+        sys.path.insert(0, os.path.abspath(args.root))
+    import audio_processor_tpu_torch
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip() \
+        .splitlines()[0]
+    package = os.path.dirname(audio_processor_tpu_torch.__file__)
+    print(f"{smi}; device: {torch.cuda.get_device_name(0)}; B={B} H={H} "
+          f"L={L} D={D} bf16; package from {package}", flush=True)
+    net = run(args.variants)
     assert "jax" not in sys.modules
+    print(json.dumps({"package": package, "card": smi, "net_ms": net}),
+          flush=True)
     return 0
 
 
