@@ -24,6 +24,9 @@ Conventions kept from the JAX package:
 - :func:`params_from_jax` turns the JAX param pytree (stacked leading
   layer axis, ``kernel [in, out]``) into this module's state dict, so
   both packages can run one set of weights.
+- int8 W8A8 (``quantization: int8``): :func:`quantize_model` swaps the
+  reference's set of dense layers for :class:`~.quant.QuantLinear`,
+  which ``dense`` runs through ``quant.dense_int8``.
 """
 
 from __future__ import annotations
@@ -41,6 +44,9 @@ import torch.nn.functional as F
 from audio_processor_tpu_torch.models.flash_attention import flash_attention
 from audio_processor_tpu_torch.models.flash_rel_attention import (
     flash_rel_attention,
+)
+from audio_processor_tpu_torch.models.quant import (
+    QuantLinear, dense_int8, is_quantized, quantize_linears,
 )
 
 
@@ -67,6 +73,16 @@ class W2VBertConfig:
         return (self.left_max_position_embeddings
                 + self.right_max_position_embeddings + 1)
 
+    @classmethod
+    def from_hf(cls, hf: Dict[str, Any]) -> "W2VBertConfig":
+        """From an HF ``Wav2Vec2BertConfig`` as its ``config.json`` dict.
+        A field the file leaves out takes this class's default, which is
+        HF's; a null ``pad_token_id`` is 0 (the CTC blank)."""
+        kw = {f.name: hf[f.name] for f in dataclasses.fields(cls)
+              if f.name in hf}
+        kw["pad_token_id"] = hf.get("pad_token_id") or 0
+        return cls(**kw)
+
 
 # The L multiple at which each kernel path takes its kernel (the
 # reference's rule); attention at any other L takes the plain path. The
@@ -84,8 +100,11 @@ def resolve_attention_impl(impl: str, device: torch.device) -> str:
     return impl
 
 
-def dense(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-    """x @ W^T + b in x's dtype; the fp32 params are cast here."""
+def dense(lin: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """x @ W^T + b in x's dtype; the fp32 params are cast here. An int8
+    layer runs the W8A8 product."""
+    if isinstance(lin, QuantLinear):
+        return dense_int8(lin, x)
     b = None if lin.bias is None else lin.bias.to(x.dtype)
     return F.linear(x, lin.weight.to(x.dtype), b)
 
@@ -306,31 +325,60 @@ def build_synthetic(cfg: W2VBertConfig, device: torch.device,
     return model.eval()
 
 
+# The dense layers int8 mode quantizes, per conformer layer (the
+# reference's quantize_params): ffn1/ffn2, attention q/k/v/out and the two
+# pointwise convs. The feature projection, lm_head, LayerNorms, depthwise
+# conv and distance embeddings stay fp32.
+QUANTIZED = tuple(
+    [f"{ffn}.{part}" for ffn in ("ffn1", "ffn2")
+     for part in ("intermediate_dense", "output_dense")]
+    + [f"self_attn.linear_{p}" for p in ("q", "k", "v", "out")]
+    + ["conv_module.pointwise_conv1", "conv_module.pointwise_conv2"])
+
+
+def quantize_model(model: Wav2Vec2Bert) -> Wav2Vec2Bert:
+    """An int8 W8A8 copy of ``model`` on its device: the ``QUANTIZED``
+    layers become int8, every other tensor is shared with ``model``,
+    which stays as it was. A model that is already int8 is returned."""
+    if is_quantized(model):
+        return model
+    with torch.device("meta"):
+        q = Wav2Vec2Bert(model.cfg)
+    q.load_state_dict(model.state_dict(), assign=True)
+    quantize_linears(q, [f"layers.{i}.{name}"
+                         for i in range(model.cfg.num_hidden_layers)
+                         for name in QUANTIZED])
+    return q.eval()
+
+
 def params_from_jax(params_np: Dict[str, Any], cfg: W2VBertConfig
                     ) -> Dict[str, torch.Tensor]:
     """The JAX param pytree (leaves as numpy arrays) -> a state dict of
-    :class:`Wav2Vec2Bert`. Splits the stacked leading layer axis;
-    ``kernel [in, out]`` -> ``weight [out, in]``; the depthwise kernel
-    ``[K, H]`` -> ``[H, 1, K]``; LayerNorm ``scale`` -> ``weight``."""
+    :class:`Wav2Vec2Bert` (of :func:`quantize_model`'s model where the
+    tree went through the reference's ``quantize_params``). Splits the
+    stacked leading layer axis; ``kernel [in, out]`` -> ``weight [out,
+    in]``, int8 ``kernel_q [in, out]`` -> ``weight_q [out, in]`` beside
+    its per-channel ``scale``; the depthwise kernel ``[K, H]`` -> ``[H, 1,
+    K]``; LayerNorm ``scale`` -> ``weight``."""
     out: Dict[str, torch.Tensor] = {}
 
-    def leaf(prefix: str, name: str, arr: np.ndarray) -> None:
+    def leaf(prefix: str, name: str, arr: np.ndarray,
+             quantized: bool) -> None:
+        dtype = torch.float32
         if name == "kernel":
             key = "weight"
             arr = (arr.T[:, None, :] if prefix.endswith("depthwise_conv")
                    else arr.T)
+        elif name == "kernel_q":
+            key, arr, dtype = "weight_q", arr.T, torch.int8
         elif name == "scale":
-            key = "weight"
+            key = "scale" if quantized else "weight"
         elif name in ("bias", "distance_embedding"):
             key = name
-        elif name == "kernel_q":
-            raise NotImplementedError(
-                "int8-quantized params are not ported yet (ROADMAP.md, "
-                "Queue 1: int8 quant.py)")
         else:
             raise ValueError(f"unexpected param {prefix}.{name}")
         out[f"{prefix}.{key}" if prefix else key] = torch.tensor(
-            np.asarray(arr), dtype=torch.float32)
+            np.asarray(arr), dtype=dtype)
 
     def walk(tree: Dict[str, Any], prefix: str, layer=None) -> None:
         for name, sub in tree.items():
@@ -338,7 +386,8 @@ def params_from_jax(params_np: Dict[str, Any], cfg: W2VBertConfig
                 walk(sub, f"{prefix}.{name}" if prefix else name, layer)
             else:
                 arr = np.asarray(sub)
-                leaf(prefix, name, arr if layer is None else arr[layer])
+                leaf(prefix, name, arr if layer is None else arr[layer],
+                     "kernel_q" in tree)
 
     walk(params_np["feature_projection"], "feature_projection")
     walk(params_np["lm_head"], "lm_head")

@@ -12,10 +12,16 @@ every sub-batch on the device and returns a closure that fetches and
 decodes, so the pipeline overlaps batch N+1's device work with batch
 N's host work; CUDA launches are asynchronous like JAX dispatch).
 
-Not ported yet (ROADMAP.md, Queue 1): loading real checkpoints (a
-``transcription_model`` path that exists raises), the message-path mono
-programs (``_mono_fn``/``_dispatch_rows``, and with them the unfused
-path), int8 quantization, and device meshes.
+Weights: an HF checkpoint directory when ``transcription_model`` points
+at one (models/checkpoint.py: converted once, then restored from its
+``torch_converted/`` cache), else seeded random weights with the default
+Darija vocabulary (synthetic mode, logged). ``quantization: int8`` runs
+the encoder's dense layers as W8A8 (models/quant.py), on a loaded or a
+given model alike.
+
+Not ported yet (ROADMAP.md, Queue 1): the message-path mono programs
+(``_mono_fn``/``_dispatch_rows``, and with them the unfused path) and
+device meshes.
 """
 
 from __future__ import annotations
@@ -36,6 +42,9 @@ from audio_processor_tpu_torch.dsp.fbank import (
 )
 from audio_processor_tpu_torch.io import native
 from audio_processor_tpu_torch.models import wav2vec2bert as w2v
+from audio_processor_tpu_torch.models.checkpoint import (
+    load_or_convert_w2v_bert,
+)
 from audio_processor_tpu_torch.models.tokenizer import (
     CTCVocab, batch_decode, decode_words,
 )
@@ -86,14 +95,11 @@ class ASREngine:
         self.dtype = (torch.bfloat16
                       if config.get("enable_mixed_precision", True)
                       else torch.float32)
-        quantization = str(config.get("quantization", "none"))
-        if quantization == "int8":
-            raise NotImplementedError(
-                "quantization: int8 is not ported yet (ROADMAP.md, "
-                "Queue 1: int8 quant.py)")
-        if quantization not in ("none", ""):
-            raise ValueError(f"unknown quantization mode {quantization!r} "
-                             "(expected 'none' or 'int8')")
+        self.quantization = str(config.get("quantization", "none"))
+        if self.quantization not in ("none", "", "int8"):
+            raise ValueError(
+                f"unknown quantization mode {self.quantization!r} "
+                "(expected 'none' or 'int8')")
         if not config.get("fuse_acoustic_features", True):
             raise NotImplementedError(
                 "fuse_acoustic_features: false needs the mono-rows "
@@ -102,6 +108,9 @@ class ASREngine:
         if model is None:
             model, vocab = self._load_or_init()
         self.model = model.to(self.device).eval()
+        if self.quantization == "int8":
+            logger.info("int8 W8A8 inference enabled")
+            self.model = w2v.quantize_model(self.model)
         self.model_cfg = model.cfg
         self.vocab = vocab or CTCVocab.darija_default()
         sr = int(config.get("target_sample_rate", 16000))
@@ -138,9 +147,16 @@ class ASREngine:
     def _load_or_init(self):
         model_path = self.config.get("transcription_model", "")
         if model_path and Path(model_path).exists():
-            raise NotImplementedError(
-                f"loading the checkpoint at {model_path!r} is not ported "
-                "yet (ROADMAP.md, Queue 1: HF checkpoint loading)")
+            logger.info("Loading checkpoint from %s", model_path)
+            cfg, sd, vocab_dict = load_or_convert_w2v_bert(model_path)
+            # The model's tensors are the loaded CPU ones (assign), so the
+            # weights exist once until the engine moves them to its device.
+            with torch.device("meta"):
+                model = w2v.Wav2Vec2Bert(cfg)
+            model.load_state_dict(sd, assign=True)
+            vocab = (CTCVocab(vocab_dict) if vocab_dict
+                     else CTCVocab.darija_default())
+            return model, vocab
         logger.warning(
             "transcription_model path %r not found — using randomly "
             "initialized weights (synthetic mode)", model_path)

@@ -9,20 +9,28 @@ Same coordinator, output keys and reference quirks as the JAX package:
 - late fusion is a fixed weighted probability sum with the
   aggressive-demotion rule.
 
+Text: the client and agent DarijaBERT-style classifiers
+(models/bert.py) on the analyzers' device, ``cuda`` unless the caller
+asks for another (as ``DataProcessor`` does; where there is no CUDA
+device it raises and never falls back to the CPU). Checkpoints load from
+their HF directories without ``transformers`` (models/hf_files.py,
+models/convert_hf.py) and tokenize with the port's WordPiece tokenizer
+(models/bert_tokenizer.py, the ids ``AutoTokenizer`` gives). Token
+counts are padded to static length buckets and the batch to a multiple of
+16, as in the reference; texts under 5 stripped characters are skipped.
+``dispatch_batch`` enqueues a classifier and returns a fetch closure, so
+the coordinator runs the agent and client classifiers before fetching
+either.
+
 The acoustic features normally arrive precomputed by the fused ASR
 program; otherwise :meth:`AcousticSentimentAnalyzer.extract_features`
-runs the port's torch extractor on the analyzer's device, ``cuda``
-unless the caller asks for another (as ``DataProcessor`` does; where
-there is no CUDA device it raises and never falls back to the CPU). The
-classifier heads run on the host in numpy, as in the reference.
-
-Text sentiment (the BERT classifiers) is not ported yet: unconfigured it
-is disabled, exactly as in the JAX package; configured it raises
-NotImplementedError.
+runs the port's torch extractor on the analyzer's device. The classifier
+heads run on the host in numpy, as in the reference.
 """
 
 from __future__ import annotations
 
+import collections
 import logging
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -34,9 +42,17 @@ from audio_processor_tpu_torch.dsp.acoustic_features import (
 )
 from audio_processor_tpu_torch.host.aggregation import (
     aggregate_agent_sentiment, aggregate_client_sentiment,
-    call_id_from_chunk_filename,
+    call_id_from_chunk_filename, pretty_sentiment,
 )
+from audio_processor_tpu_torch.models import bert as bert_mod
 from audio_processor_tpu_torch.models import sklearn_infer as ski
+from audio_processor_tpu_torch.models.bert_tokenizer import BertTokenizer
+from audio_processor_tpu_torch.models.convert_hf import (
+    convert_bert_classifier,
+)
+from audio_processor_tpu_torch.models.hf_files import (
+    read_config, read_state_dict,
+)
 from audio_processor_tpu_torch.pipeline.chunker import pick_bucket
 
 logger = logging.getLogger(__name__)
@@ -50,22 +66,113 @@ def _empty_results(n: int) -> List[Dict[str, Any]]:
 
 # ----------------------------------------------------------------------
 class TextSentimentAnalyzer:
-    """Client/agent text classifiers: disabled unless configured; the
-    configured (BERT) path is not ported yet."""
+    """Client/agent text classifiers, loaded when both paths are set."""
 
-    def __init__(self, config):
-        # Both paths set is when the JAX package loads the models.
-        if config.get("client_text_model_path", "") and \
-                config.get("agent_text_model_path", ""):
-            raise NotImplementedError(
-                "text sentiment models (BERT) are not ported yet "
-                "(ROADMAP.md, Queue 1: text BERT)")
-        logger.warning("Text model paths not configured - "
-                       "text sentiment disabled")
+    # Token counts are padded to these buckets, so the classifiers run a
+    # handful of shapes.
+    _LEN_BUCKETS = (32, 64, 128, 256, 512)
+
+    def __init__(self, config, device="cuda"):
+        self.config = config
+        self.device = torch.device(device)
+        self.models: Dict[str, Optional[Dict[str, Any]]] = {
+            "client": None, "agent": None}
+        self.models_available = False
+        # (batch rows, bucket) of every classifier run, for the records.
+        self.shapes_run: collections.Counter = collections.Counter()
+        client_path = config.get("client_text_model_path", "")
+        agent_path = config.get("agent_text_model_path", "")
+        if client_path and agent_path:
+            try:
+                self.models["client"] = self._load_one(client_path)
+                self.models["agent"] = self._load_one(agent_path)
+                self.models_available = True
+            except Exception as e:  # a bad checkpoint disables text
+                logger.error("Failed to load text models: %s", e)
+        else:
+            logger.warning("Text model paths not configured - "
+                           "text sentiment disabled")
+
+    def _load_one(self, path: str) -> Dict[str, Any]:
+        hf = read_config(path)
+        cfg = bert_mod.BertConfig.from_hf(hf)
+        id2label = ({int(k): v for k, v in hf["id2label"].items()}
+                    if hf.get("id2label")
+                    else {i: f"LABEL_{i}" for i in range(cfg.num_labels)})
+        sd = convert_bert_classifier(read_state_dict(path),
+                                     cfg.num_hidden_layers)
+        with torch.device("meta"):
+            model = bert_mod.BertForSequenceClassification(cfg)
+        model.load_state_dict(sd, assign=True)
+        model = model.to(self.device).eval()
+        if str(self.config.get("quantization", "none")) == "int8":
+            # The same opt-in W8A8 mode as the ASR encoder.
+            model = bert_mod.quantize_model(model)
+        return {"model": model, "cfg": cfg,
+                "tokenizer": BertTokenizer.from_pretrained(path),
+                "id2label": id2label}
+
+    def _bucket_len(self, n: int) -> int:
+        for b in self._LEN_BUCKETS:
+            if n <= b:
+                return b
+        return self._LEN_BUCKETS[-1]
+
+    def dispatch_batch(self, texts: Sequence[str], speaker: str):
+        """Tokenize and enqueue the classifier on the device (CUDA runs
+        asynchronously), and return a closure that fetches the results."""
+        n = len(texts)
+        if n == 0:
+            return lambda: []
+        model = (self.models.get(speaker)
+                 if self.models_available else None)
+        if model is None:
+            return lambda: _empty_results(n)
+
+        valid_idx = [i for i, t in enumerate(texts)
+                     if t and t.strip() and len(t.strip()) >= 5]
+        if not valid_idx:
+            return lambda: _empty_results(n)
+        enc = model["tokenizer"]([texts[i] for i in valid_idx],
+                                 max_length=512)
+        ids = enc["input_ids"].astype(np.int32)
+        mask = enc["attention_mask"].astype(np.float32)
+        L = self._bucket_len(ids.shape[1])
+        if ids.shape[1] < L:
+            pad = L - ids.shape[1]
+            ids = np.pad(ids, ((0, 0), (0, pad)))
+            mask = np.pad(mask, ((0, 0), (0, pad)))
+        # The batch padded to a multiple of 16 (static shapes).
+        nvalid = ids.shape[0]
+        pad_b = max(16, -(-nvalid // 16) * 16) - nvalid
+        if pad_b:
+            ids = np.pad(ids, ((0, pad_b), (0, 0)))
+            mask = np.pad(mask, ((0, pad_b), (0, 0)))
+        with torch.inference_mode():
+            device_probs = torch.softmax(model["model"](
+                torch.from_numpy(ids).to(self.device),
+                torch.from_numpy(mask).to(self.device)), dim=-1)
+        self.shapes_run[ids.shape] += 1
+
+        def fetch() -> List[Dict[str, Any]]:
+            probs = device_probs.cpu().numpy()[:nvalid]
+            id2label = model["id2label"]
+            out = _empty_results(n)
+            for row, i in enumerate(valid_idx):
+                p = probs[row]
+                idx = int(np.argmax(p))
+                out[i] = {"prediction": id2label.get(idx, "unknown"),
+                          "confidence": float(p.max()),
+                          "probabilities": p.tolist()}
+            return out
+        return fetch
 
     def analyze_batch_sentiment(self, texts: Sequence[str],
                                 speaker: str) -> List[Dict[str, Any]]:
-        return _empty_results(len(texts))
+        return self.dispatch_batch(texts, speaker)()
+
+    def analyze_sentiment(self, text: str, speaker: str) -> Dict[str, Any]:
+        return self.analyze_batch_sentiment([text], speaker)[0]
 
 
 # ----------------------------------------------------------------------
@@ -202,6 +309,11 @@ class AcousticSentimentAnalyzer:
             }
         return out
 
+    def analyze_sentiment(self, waveform, sample_rate: int,
+                          speaker: str) -> Dict[str, Any]:
+        return self.analyze_batch_sentiment([waveform], sample_rate,
+                                            speaker)[0]
+
 
 # ----------------------------------------------------------------------
 class LateFusionSentimentAnalyzer:
@@ -281,7 +393,7 @@ class SentimentAnalyzer:
 
     def load_models(self):
         """(Re)build the three analyzers."""
-        self.text_analyzer = TextSentimentAnalyzer(self.config)
+        self.text_analyzer = TextSentimentAnalyzer(self.config, self.device)
         self.acoustic_analyzer = AcousticSentimentAnalyzer(self.config,
                                                            self.device)
         self.late_fusion_analyzer = LateFusionSentimentAnalyzer(self.config)
@@ -289,6 +401,10 @@ class SentimentAnalyzer:
             self.acoustic_analyzer.agent_acoustic_id2label
         self.late_fusion_analyzer.client_id2label = \
             self.acoustic_analyzer.client_acoustic_id2label
+
+    def pretty_sentiment(self, label) -> str:
+        """Raw label -> display variant."""
+        return pretty_sentiment(label)
 
     # ------------------------------------------------------------------
     def analyze_batch_sentiment(self, chunks: List[Dict]) -> List[Dict]:
@@ -306,10 +422,14 @@ class SentimentAnalyzer:
 
     def _analyze_batch(self, chunks: List[Dict]) -> List[Dict]:
         sr = int(self.config.get("target_sample_rate", 16000))
-        a_text = self.text_analyzer.analyze_batch_sentiment(
+        # Both classifiers are dispatched before either is fetched, so the
+        # two programs queue back to back on the device.
+        a_fetch = self.text_analyzer.dispatch_batch(
             [c.get("agent_transcription", "") for c in chunks], "agent")
-        c_text = self.text_analyzer.analyze_batch_sentiment(
+        c_fetch = self.text_analyzer.dispatch_batch(
             [c.get("client_transcription", "") for c in chunks], "client")
+        a_text = a_fetch()
+        c_text = c_fetch()
 
         def acoustic(speaker):
             # Prefer the features the fused ASR program computed.

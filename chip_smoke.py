@@ -46,10 +46,34 @@ Phases, each of which fails the run (non-zero exit) on any error:
    (1 at 8 kHz), the same checks with the flash kernel, and no
    flash_rel launch;
 6. the ablation path: ``tools/profile_kernel_parts_torch.py`` over all
-   its variants at B=48, H=16, L=1280; each ablation kernel launched.
+   its variants at B=48, H=16, L=1280; each ablation kernel launched;
+7. the production configuration at full width: the script writes three
+   HF-format checkpoint directories from its seed with its own
+   safetensors writer (an ASR ``Wav2Vec2BertForCTC`` at w2v-bert-2.0
+   width with the default Darija vocabulary, ~2.3 GB in fp32, and two
+   BERT-base classifiers with the reference's client and agent labels
+   and a synthetic ``vocab.txt``), then runs ``DataProcessor`` over 4
+   stereo calls of 100 s (1 at 8 kHz) with ``transcription_model`` and
+   both ``*_text_model_path``s set, CSV output. It fails unless the
+   engine's weights equal the written ones bit for bit, a second load
+   restores them from ``torch_converted/`` bit for bit, text sentiment
+   is available, every chunk row has a text prediction exactly where its
+   transcript has >= 5 stripped characters with probabilities summing to
+   1 (1e-5), and the flash_rel kernel ran 24 times per batch. Prints the
+   load times, the text classifier's ms per dispatch at each (B, bucket)
+   the run hit and at B=16 for every bucket, and the phase's RTFx;
+7b. the text analyzer on the card against the CPU, on a small BERT
+   directory and the BERT-base one, 16 texts: probabilities within 1e-4,
+   predictions equal off near-ties, and the tokenizer's ids the same on
+   both;
+7c. int8: a tiny engine with ``quantization: int8`` on the card and on
+   the CPU (ids equal off near-ties), then 2 calls through
+   ``DataProcessor`` at full width with ``quantization: int8`` and text
+   on (every file succeeds, 24 flash_rel launches per batch), and the
+   wall of one 48 x 1280 batch, int8 beside bf16.
 
-Kernel launch counts are set to 0 just before each of the paths 5, 5b
-and 6 and read just after. The second-to-last line is the kernels' JSON
+Kernel launch counts are set to 0 just before each of the paths 5, 5b,
+6, 7 and 7c and read just after. The second-to-last line is the kernels' JSON
 record (per kernel: launches, error, ms, plain ms, the bound computed
 from the timed inputs and what sets it, and the library call's ms or
 null); the last line is ``{"ok": true, "device": {...}}``. Imports
@@ -59,10 +83,12 @@ nothing of JAX and nothing of the JAX package ``audio_processor_tpu``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import csv
 import importlib.util
 import json
 import logging
+import struct
 import subprocess
 import sys
 import tempfile
@@ -80,6 +106,7 @@ SOURCES = ("flash_rel_attention", "flash_attention", "flash_rel_parts")
 # 2^-7 relative) since both sides compute in fp32 and round at the end.
 TOL = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (1e-2, 1e-2)}
 MARGIN = 1e-3          # ids compared where the reference's top-2 margin is wider
+INT8_MARGIN = 1e-2     # the same under int8 (an int8 step moves logits ~1e-3)
 FEAT_ATOL = 2e-4       # acoustic features, relative to max(|ref|, 1)
 # (encoder rows B, frames L) of every kernel call in the main-path phase:
 # 3 views x (16, 8 or 4 chunks) at the 25 s (1280) and 5 s (256) buckets.
@@ -95,6 +122,17 @@ BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core peak (same)
 ABLATION_VARIANTS = ("full", "noselect", "norel", "nomax", "nosoftmax",
                      "noexp", "kb640", "bare:ones", "bare:reduce",
                      "shipped", "stock")
+# The reference's raw text-classifier labels (host/aggregation.py maps
+# them to display labels).
+CLIENT_LABELS = ("content", "mécontent", "neutre", "très mécontent")
+AGENT_LABELS = ("aggressive", "courtois", "neutre", "sec")
+TEXT_PROB_TOL = 1e-4   # text probabilities, card vs CPU (fp32, no TF32)
+# The production configuration's published widths: the ASR model at
+# w2v-bert-2.0's, the text classifiers at BERT-base's (the port's
+# W2VBertConfig and BertConfig defaults).
+W2V_BERT_2 = {"hidden": 1024, "layers": 24, "heads": 16, "ffn": 4096}
+BERT_BASE = {"hidden": 768, "layers": 12, "heads": 12, "ffn": 3072}
+DEVICE = "cuda"        # where phases 7-7c put the port (7b holds it to the CPU)
 
 
 def log(msg: str) -> None:
@@ -513,11 +551,16 @@ def _write_calls(root: Path, seed: int, n: int, dur: float,
     return n * dur
 
 
-def small_reference(seed: int, impl: str) -> None:
+def small_reference(seed: int, impl: str, quantization: str = "none"
+                    ) -> None:
     """A tiny model through the engine's fused program on the card
     (CUDA kernel) and on the CPU (plain path), fp32, same inputs.
     ``impl`` is the configured attention_impl: "auto" (flash_rel on the
-    card, xla on the CPU) or "flash" (on both)."""
+    card, xla on the CPU) or "flash" (on both). Under ``quantization:
+    int8`` an activation on one side can round to the next int8 step
+    (the two sides' fp32 differ in the last bits), so the logits are not
+    bounded and ids are compared where the top-2 margin exceeds
+    INT8_MARGIN."""
     from audio_processor_tpu_torch.config import PipelineConfig
     from audio_processor_tpu_torch.io.decode import load_audio
     from audio_processor_tpu_torch.models import wav2vec2bert as w2v
@@ -530,7 +573,8 @@ def small_reference(seed: int, impl: str) -> None:
     cfg = PipelineConfig.from_dict({
         "enable_mixed_precision": False, "chunk_duration_sec": 10.0,
         "overlap_sec": 1.0, "length_buckets_sec": [5.0, 10.0],
-        "chunk_batch_size": 4, "attention_impl": impl})
+        "chunk_batch_size": 4, "attention_impl": impl,
+        "quantization": quantization})
     vocab = CTCVocab.darija_default()
     mcfg = w2v.W2VBertConfig(vocab_size=len(vocab), hidden_size=128,
                              num_hidden_layers=2, num_attention_heads=2,
@@ -542,6 +586,12 @@ def small_reference(seed: int, impl: str) -> None:
     assert (gpu.attention_impl, cpu.attention_impl) == {
         "auto": ("flash_rel", "xla"), "flash": ("flash", "flash")}[impl]
     tag = "[reference]" if impl == "auto" else f"[reference {impl}]"
+    if quantization == "int8":
+        tag = "[reference int8]"
+        assert all(type(e.model.layers[0].ffn1.intermediate_dense).__name__
+                   == "QuantLinear" for e in (cpu, gpu))
+    margin, logit_tol = ((INT8_MARGIN, float("inf"))
+                         if quantization == "int8" else (MARGIN, 1e-4))
     with tempfile.TemporaryDirectory() as tmp:
         _write_calls(Path(tmp) / "in", seed + 1, 1, 23.0, 1)
         wave, sr = load_audio(Path(tmp) / "in" / "call-00.wav")
@@ -569,22 +619,23 @@ def small_reference(seed: int, impl: str) -> None:
         feats, mask = pad_seq(*log_mel_frontend(
             rows, torch.from_numpy(lengths).repeat_interleave(3)))
         with torch.inference_mode():
-            logits = cpu_model(feats, mask, attention_impl=cpu.attention_impl)
+            logits = cpu.model(feats, mask, attention_impl=cpu.attention_impl)
             logits_g = gpu.model(feats.cuda(), mask.cuda(),
                                  attention_impl=gpu.attention_impl).cpu()
         real = slice(0, 3 * n)
         top2 = logits.topk(2, dim=-1).values
-        clear = ((top2[..., 0] - top2[..., 1]) > MARGIN)[real]
+        clear = ((top2[..., 0] - top2[..., 1]) > margin)[real]
         dlog = float((logits_g - logits)[real][mask[real]].abs().max())
         same = bool(torch.equal(ids_c[real][clear], ids_g[real][clear]))
         scale = af_c[:n].abs().clamp_min(1.0)
         dfeat = float(((af_g[:n] - af_c[:n]) / scale)
                       .nan_to_num(0.0).abs().max())
         log(f"{tag} bucket {batch.bucket_len}, {n} chunk(s): logits "
-            f"max_abs {dlog:.3e} (tol 1e-4); ids equal on "
+            f"max_abs {dlog:.3e} (tol {logit_tol:g}); ids equal on "
             f"{int(clear.sum())}/{clear.numel()} clear frames: {same}; "
             f"features max rel {dfeat:.3e} (tol {FEAT_ATOL:g})")
-        if not (dlog <= 1e-4 and same and dfeat <= FEAT_ATOL):
+        if not (dlog <= logit_tol and same and dfeat <= FEAT_ATOL
+                and int(clear.sum()) > 0):
             raise AssertionError("card and CPU disagree on the small input")
 
 
@@ -719,6 +770,477 @@ def ablation_path(seed: int) -> dict:
     return {"launches": counts, "ms": ms}
 
 
+# ---------------------------------------------------------------- phase 7
+_ST_DTYPE = {torch.float32: "F32", torch.int64: "I64"}
+
+
+def write_safetensors(path: Path, tensors: dict) -> None:
+    """A ``.safetensors`` file: 8-byte little-endian header length, the
+    JSON header (dtype, shape, byte range of each tensor), the buffers."""
+    header, offset = {"__metadata__": {"format": "pt"}}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": _ST_DTYPE[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)))
+        f.write(raw)
+        for t in tensors.values():
+            t.contiguous().numpy().tofile(f)
+
+
+class _Weights:
+    """Seeded fp32 tensors under HF names, each beside the name the port's
+    model gives it (None where the model has no such tensor)."""
+
+    def __init__(self, seed: int):
+        self.gen = torch.Generator().manual_seed(seed)
+        self.hf: dict = {}
+        self.port: dict = {}
+
+    def add(self, hf_name, shape, port_name=None, kind="normal"):
+        if kind == "ln_weight":
+            t = 1.0 + 0.1 * torch.randn(shape, generator=self.gen)
+        else:
+            t = 0.02 * torch.randn(shape, generator=self.gen)
+        self.hf[hf_name] = t
+        if port_name is not None:
+            self.port[port_name] = t
+
+    def ln(self, hf, port, d):
+        self.add(f"{hf}.weight", (d,), port and f"{port}.weight", "ln_weight")
+        self.add(f"{hf}.bias", (d,), port and f"{port}.bias")
+
+    def linear(self, hf, port, d_in, d_out, bias=True):
+        self.add(f"{hf}.weight", (d_out, d_in), port and f"{port}.weight")
+        if bias:
+            self.add(f"{hf}.bias", (d_out,), port and f"{port}.bias")
+
+
+def write_w2v_checkpoint(d: Path, seed: int, vocab: dict, hidden: int,
+                         layers: int, heads: int, ffn: int) -> dict:
+    """An HF ``Wav2Vec2BertForCTC`` directory (w2v-bert-2.0: hidden 1024,
+    24 layers, 16 heads, FFN 4096; conv 31, relative positions 64/8):
+    config.json, vocab.json, model.safetensors. Returns the port-named
+    tensors that were written."""
+    H, I, K, P, hd = hidden, ffn, 31, 73, hidden // heads
+    w = _Weights(seed)
+    w.add("wav2vec2_bert.masked_spec_embed", (H,))        # unused by CTC
+    fp = "wav2vec2_bert.feature_projection"
+    w.ln(f"{fp}.layer_norm", "feature_projection.layer_norm", 160)
+    w.linear(f"{fp}.projection", "feature_projection.projection", 160, H)
+    for i in range(layers):
+        hf, pt = f"wav2vec2_bert.encoder.layers.{i}", f"layers.{i}"
+        for ffn in ("ffn1", "ffn2"):
+            w.ln(f"{hf}.{ffn}_layer_norm", f"{pt}.{ffn}_layer_norm", H)
+            w.linear(f"{hf}.{ffn}.intermediate_dense",
+                     f"{pt}.{ffn}.intermediate_dense", H, I)
+            w.linear(f"{hf}.{ffn}.output_dense", f"{pt}.{ffn}.output_dense",
+                     I, H)
+        w.ln(f"{hf}.self_attn_layer_norm", f"{pt}.self_attn_layer_norm", H)
+        for proj in ("q", "k", "v", "out"):
+            w.linear(f"{hf}.self_attn.linear_{proj}",
+                     f"{pt}.self_attn.linear_{proj}", H, H)
+        w.add(f"{hf}.self_attn.distance_embedding.weight", (P, hd),
+              f"{pt}.self_attn.distance_embedding")
+        cm, cp = f"{hf}.conv_module", f"{pt}.conv_module"
+        w.ln(f"{cm}.layer_norm", f"{cp}.layer_norm", H)
+        w.add(f"{cm}.pointwise_conv1.weight", (2 * H, H, 1))
+        w.port[f"{cp}.pointwise_conv1.weight"] = \
+            w.hf[f"{cm}.pointwise_conv1.weight"][..., 0]
+        w.add(f"{cm}.depthwise_conv.weight", (H, 1, K),
+              f"{cp}.depthwise_conv.weight")
+        w.ln(f"{cm}.depthwise_layer_norm", f"{cp}.depthwise_layer_norm", H)
+        w.add(f"{cm}.pointwise_conv2.weight", (H, H, 1))
+        w.port[f"{cp}.pointwise_conv2.weight"] = \
+            w.hf[f"{cm}.pointwise_conv2.weight"][..., 0]
+        w.ln(f"{hf}.final_layer_norm", f"{pt}.final_layer_norm", H)
+    w.linear("lm_head", "lm_head", H, len(vocab))
+    d.mkdir(parents=True)
+    (d / "config.json").write_text(json.dumps({
+        "architectures": ["Wav2Vec2BertForCTC"],
+        "model_type": "wav2vec2-bert", "vocab_size": len(vocab),
+        "hidden_size": H, "num_hidden_layers": layers,
+        "num_attention_heads": heads, "intermediate_size": I,
+        "feature_projection_input_dim": 160,
+        "conv_depthwise_kernel_size": K,
+        "position_embeddings_type": "relative_key",
+        "left_max_position_embeddings": 64,
+        "right_max_position_embeddings": 8, "layer_norm_eps": 1e-5,
+        "pad_token_id": 0, "bos_token_id": 1, "eos_token_id": 2}))
+    (d / "vocab.json").write_text(json.dumps(vocab, ensure_ascii=False),
+                                  encoding="utf-8")
+    write_safetensors(d / "model.safetensors", w.hf)
+    return w.port
+
+
+def bert_vocab(ctc_vocab: dict, size: int) -> list:
+    """A BERT-style vocab.txt of ``size`` lines: [PAD], [unused*], [UNK],
+    [CLS], [SEP], [MASK] at BERT-base's ids, then the Darija characters,
+    digits and Latin letters whole and as ``##`` pieces, then fillers."""
+    chars = [t for t in ctc_vocab if len(t) == 1 and t != "|"]
+    toks = (["[PAD]"] + [f"[unused{i}]" for i in range(99)]
+            + ["[UNK]", "[CLS]", "[SEP]", "[MASK]"] + chars
+            + ["##" + c for c in chars] + list(".,!?،؟"))
+    return toks + [f"[unused{i}]" for i in range(99, 99 + size - len(toks))]
+
+
+def write_bert_checkpoint(d: Path, seed: int, labels, vocab: list,
+                          hidden: int, layers: int, heads: int, ffn: int,
+                          positions: int = 512) -> None:
+    """An HF ``BertForSequenceClassification`` directory (BERT-base at the
+    defaults): config.json with ``id2label``, model.safetensors (with the
+    ``position_ids`` buffer older checkpoints carry), vocab.txt and
+    tokenizer_config.json."""
+    w = _Weights(seed)
+    e = "bert.embeddings"
+    w.add(f"{e}.word_embeddings.weight", (len(vocab), hidden))
+    w.add(f"{e}.position_embeddings.weight", (positions, hidden))
+    w.add(f"{e}.token_type_embeddings.weight", (2, hidden))
+    w.ln(f"{e}.LayerNorm", None, hidden)
+    for i in range(layers):
+        p = f"bert.encoder.layer.{i}"
+        for n in ("query", "key", "value"):
+            w.linear(f"{p}.attention.self.{n}", None, hidden, hidden)
+        w.linear(f"{p}.attention.output.dense", None, hidden, hidden)
+        w.ln(f"{p}.attention.output.LayerNorm", None, hidden)
+        w.linear(f"{p}.intermediate.dense", None, hidden, ffn)
+        w.linear(f"{p}.output.dense", None, ffn, hidden)
+        w.ln(f"{p}.output.LayerNorm", None, hidden)
+    w.linear("bert.pooler.dense", None, hidden, hidden)
+    w.add("classifier.weight", (len(labels), hidden))
+    w.hf["classifier.weight"] *= 50.0          # visibly unequal classes
+    w.add("classifier.bias", (len(labels),))
+    w.hf[f"{e}.position_ids"] = torch.arange(positions)[None]
+    d.mkdir(parents=True)
+    (d / "config.json").write_text(json.dumps({
+        "architectures": ["BertForSequenceClassification"],
+        "model_type": "bert", "vocab_size": len(vocab),
+        "hidden_size": hidden, "num_hidden_layers": layers,
+        "num_attention_heads": heads, "intermediate_size": ffn,
+        "max_position_embeddings": positions, "type_vocab_size": 2,
+        "layer_norm_eps": 1e-12, "hidden_act": "gelu",
+        "id2label": {str(i): lab for i, lab in enumerate(labels)},
+        "label2id": {lab: i for i, lab in enumerate(labels)}},
+        ensure_ascii=False), encoding="utf-8")
+    write_safetensors(d / "model.safetensors", w.hf)
+    (d / "vocab.txt").write_text("\n".join(vocab), encoding="utf-8")
+    (d / "tokenizer_config.json").write_text(json.dumps(
+        {"do_lower_case": True, "tokenizer_class": "BertTokenizer"}))
+
+
+def write_production_models(root: Path, seed: int, asr: dict,
+                            bert: dict) -> dict:
+    from audio_processor_tpu_torch.models.tokenizer import CTCVocab
+
+    t0 = time.perf_counter()
+    ctc = CTCVocab.darija_default().vocab
+    written = write_w2v_checkpoint(root / "asr", seed, ctc, **asr)
+    vocab = bert_vocab(ctc, 30522)
+    write_bert_checkpoint(root / "client_text", seed + 1, CLIENT_LABELS,
+                          vocab, **bert)
+    write_bert_checkpoint(root / "agent_text", seed + 2, AGENT_LABELS, vocab,
+                          **bert)
+    write_bert_checkpoint(root / "small_text", seed + 3, CLIENT_LABELS,
+                          vocab[:200], hidden=64, layers=2, heads=4,
+                          ffn=128)
+    size = sum(f.stat().st_size for f in root.rglob("*.safetensors"))
+    log(f"[production] wrote the ASR checkpoint (w2v-bert-2.0 width) and two"
+        f" BERT-base classifiers (+ a small one): {size / 1e9:.2f} GB of "
+        f"safetensors in {time.perf_counter() - t0:.1f} s")
+    return written
+
+
+def _equal_state(model, want: dict, label: str) -> None:
+    """The model's tensors equal ``want`` bit for bit, name for name."""
+    got = model.state_dict()
+    assert set(got) == set(want), (label, set(got) ^ set(want))
+    bad = [k for k, t in want.items()
+           if not torch.equal(got[k].cpu(), t)]
+    log(f"[production] {label}: {len(want)} tensors, bit-equal: {not bad}")
+    assert not bad, bad[:5]
+
+
+@contextlib.contextmanager
+def _no_reconversion():
+    """Inside, ``load_or_convert_w2v_bert`` must restore from its cache."""
+    from audio_processor_tpu_torch.models import checkpoint
+
+    real = checkpoint.load_w2v_bert_from_pretrained
+
+    def refuse(*a, **k):
+        raise AssertionError("the cache was not restored")
+
+    checkpoint.load_w2v_bert_from_pretrained = refuse
+    try:
+        yield
+    finally:
+        checkpoint.load_w2v_bert_from_pretrained = real
+
+
+def _spy_rows(proc) -> list:
+    """The sentiment stage's output rows (with probabilities, which the
+    CSV does not keep)."""
+    rows = []
+    real = proc.sentiment_analyzer.analyze_batch_sentiment
+    proc.sentiment_analyzer.analyze_batch_sentiment = \
+        lambda chunks: rows.extend(real(chunks)) or chunks
+    return rows
+
+
+def production_run(models: Path, root: Path, seed: int, n_calls: int,
+                   n_8k: int, tag: str, **extra) -> dict:
+    """DataProcessor over n_calls 100 s calls with the checkpoint and both
+    text paths set; launch counts set to 0 just before the run."""
+    from audio_processor_tpu_torch.config import PipelineConfig
+    from audio_processor_tpu_torch.pipeline.engine import DataProcessor
+
+    audio_s = _write_calls(root / "input", seed, n_calls, 100.0, n_8k)
+    cfg = PipelineConfig.from_dict({
+        "input_folder": str(root / "input"),
+        "output_folder": str(root / "output"),
+        "logs_folder": str(root / "logs"), "temp_dir": str(root / "tmp"),
+        "transcription_model": str(models / "asr"),
+        "client_text_model_path": str(models / "client_text"),
+        "agent_text_model_path": str(models / "agent_text"),
+        "chunk_batch_size": 16, "enable_mixed_precision": True,
+        "save_csv_results": True, **extra})
+    proc = DataProcessor(cfg, device=DEVICE)
+    try:
+        t0 = time.perf_counter()
+        proc.setup_models()
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        engine, text = proc.asr_engine, proc.sentiment_analyzer.text_analyzer
+        rows = _spy_rows(proc)
+        _reset_launches()
+        engine.dispatches = 0
+        t0 = time.perf_counter()
+        succeeded = proc.run()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        counts = _launches()
+        stats = dict(proc.stats)
+    finally:
+        proc.close()
+    (csv_path,) = (root / "output").glob("optimized_results_*.csv")
+    with open(csv_path, newline="", encoding="utf-8") as f:
+        csv_rows = list(csv.DictReader(f))
+    launches = counts["flash_rel_attention"]
+    layers = engine.model_cfg.num_hidden_layers
+    log(f"{tag} setup (checkpoint load, text classifiers) {setup_s:.2f} s; "
+        f"files succeeded {succeeded}/{n_calls}, chunk rows {len(csv_rows)}"
+        f", batches {engine.dispatches}, flash_rel launches {launches} = "
+        f"{layers} x {engine.dispatches}: "
+        f"{launches == layers * engine.dispatches}; text classifier runs "
+        f"{dict(text.shapes_run)}")
+    log(f"{tag} wall {wall_s:.2f} s for {audio_s:.0f} s of audio (warmup "
+        f"included): RTFx {audio_s / wall_s:.1f}")
+    assert succeeded == n_calls and stats["files_success"] == n_calls, stats
+    assert stats["errors"] == 0 and not any(r["error"] for r in csv_rows)
+    assert len(csv_rows) == len(rows) == 5 * n_calls, (len(csv_rows),
+                                                       len(rows))
+    assert text.models_available
+    assert launches > 0 and launches == layers * engine.dispatches, counts
+    assert all(n == 0 for k, n in counts.items()
+               if k != "flash_rel_attention"), counts
+    _check_text_rows(rows, tag)
+    return {"proc": proc, "engine": engine, "text": text, "rows": rows,
+            "wall_s": wall_s, "audio_s": audio_s, "setup_s": setup_s,
+            "launches": launches}
+
+
+def _check_text_rows(rows: list, tag: str) -> None:
+    """A text prediction exactly where the transcript has >= 5 stripped
+    characters, and then probabilities that sum to 1 within 1e-5."""
+    n_text, worst = 0, 0.0
+    for r in rows:
+        for speaker, labels in (("agent", AGENT_LABELS),
+                                ("client", CLIENT_LABELS)):
+            text = r[f"{speaker}_transcription"]
+            pred = r[f"{speaker}_text_sentiment"]
+            assert (pred != "") == (len(text.strip()) >= 5), (text, pred)
+            if pred:
+                assert pred in labels, pred
+                worst = max(worst, abs(sum(
+                    r[f"{speaker}_text_probabilities"]) - 1.0))
+                n_text += 1
+    log(f"{tag} text predictions on {n_text} of {2 * len(rows)} transcripts"
+        f" (all with >= 5 characters); worst |sum(p) - 1| {worst:.2e} "
+        "(tol 1e-5)")
+    assert n_text > 0 and worst <= 1e-5
+
+
+def _time_text(text, speaker: str, shapes) -> dict:
+    """ms per classifier dispatch (the forward and its softmax) at each
+    (B, L), on random token ids, by CUDA events."""
+    model = text.models[speaker]["model"]
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    out = {}
+    for B, L in shapes:
+        ids = torch.randint(0, model.cfg.vocab_size, (B, L), generator=gen,
+                            device=DEVICE, dtype=torch.int32)
+        mask = torch.ones(B, L, device=DEVICE)
+        with torch.inference_mode():
+            out[(B, L)] = _cuda_ms(lambda: torch.softmax(model(ids, mask),
+                                                         -1), 5)
+    return out
+
+
+def production(seed: int, work: Path, asr: dict = W2V_BERT_2,
+               bert: dict = BERT_BASE) -> dict:
+    """Phase 7: the production configuration at full width."""
+    from audio_processor_tpu_torch.config import PipelineConfig
+    from audio_processor_tpu_torch.models.checkpoint import (
+        load_or_convert_w2v_bert,
+    )
+    from audio_processor_tpu_torch.pipeline.sentiment import (
+        TextSentimentAnalyzer,
+    )
+
+    models = work / "models"
+    log(f"[production] card: {smi_line()}")
+    written = write_production_models(models, seed, asr, bert)
+    res = production_run(models, work / "run7", seed + 7, 4, 1,
+                         "[production]")
+    engine = res["engine"]
+    mcfg = engine.model_cfg
+    assert (mcfg.hidden_size, mcfg.num_hidden_layers,
+            mcfg.num_attention_heads, mcfg.intermediate_size) == (
+        asr["hidden"], asr["layers"], asr["heads"], asr["ffn"]), mcfg
+    bcfg = res["text"].models["client"]["cfg"]
+    assert (bcfg.hidden_size, bcfg.num_hidden_layers, bcfg.vocab_size,
+            bcfg.max_position_embeddings) == (bert["hidden"],
+                                              bert["layers"], 30522, 512)
+    _equal_state(engine.model, written, "engine weights vs written")
+    cache = models / "asr" / "torch_converted"
+    assert (cache / "params.pt").exists() and (cache / "metadata.json").exists()
+    t0 = time.perf_counter()
+    with _no_reconversion():
+        cfg, sd, vocab = load_or_convert_w2v_bert(models / "asr")
+    restore_s = time.perf_counter() - t0
+    assert cfg == engine.model_cfg and vocab == engine.vocab.vocab
+    assert set(sd) == set(written) and all(
+        torch.equal(sd[k], t) for k, t in written.items())
+    log(f"[production] second load restored torch_converted/ bit-equal in "
+        f"{restore_s:.2f} s")
+    del sd
+    t0 = time.perf_counter()
+    TextSentimentAnalyzer(PipelineConfig.from_dict({
+        "client_text_model_path": str(models / "client_text"),
+        "agent_text_model_path": str(models / "agent_text")}), DEVICE)
+    torch.cuda.synchronize()
+    text_load_s = time.perf_counter() - t0
+    log(f"[production] load times: setup_models {res['setup_s']:.2f} s "
+        f"(checkpoint convert + cache write + both text classifiers), "
+        f"cache restore {restore_s:.2f} s, both text classifiers "
+        f"{text_load_s:.2f} s")
+    # The text classifier's cost at the shapes the run gave it, and at
+    # B = 16 at every length bucket.
+    text = res["text"]
+    shapes = sorted(set(text.shapes_run)
+                    | {(16, L) for L in text._LEN_BUCKETS})
+    ms = _time_text(text, "client", shapes)
+    text_ms = sum(ms[s] * n for s, n in text.shapes_run.items())
+    for s in shapes:
+        log(f"[production] text classifier (BERT-base, fp32) B={s[0]} "
+            f"L={s[1]}: {ms[s]:.2f} ms per dispatch, run "
+            f"{text.shapes_run.get(s, 0)} times")
+    log(f"[production] text classifiers: ~{text_ms:.0f} ms of the "
+        f"{res['wall_s'] * 1e3:.0f} ms run "
+        f"({text_ms / (res['wall_s'] * 1e3):.3f}), device time at these "
+        "shapes")
+    res.update({"text_ms": ms, "restore_s": restore_s,
+                "text_load_s": text_load_s, "models": models})
+    return res
+
+
+def text_card_vs_cpu(models: Path, rows: list) -> None:
+    """Phase 7b: the text analyzer on the card against the CPU, a small
+    BERT directory and the BERT-base one, on 16 texts."""
+    from audio_processor_tpu_torch.config import PipelineConfig
+    from audio_processor_tpu_torch.pipeline.sentiment import (
+        TextSentimentAnalyzer,
+    )
+
+    texts = [r["client_transcription"] for r in rows][:12] + [
+        "السلام عليكم، كيف داير؟", "salam labas 3lik", "wakha a sidi",
+        "شكرا بزاف"]
+    assert len(texts) == 16
+    for name in ("small_text", "client_text"):
+        cfg = PipelineConfig.from_dict({
+            "client_text_model_path": str(models / name),
+            "agent_text_model_path": str(models / name)})
+        gpu = TextSentimentAnalyzer(cfg, DEVICE)
+        cpu = TextSentimentAnalyzer(cfg, "cpu")
+        tok_g = gpu.models["client"]["tokenizer"](texts)["input_ids"]
+        tok_c = cpu.models["client"]["tokenizer"](texts)["input_ids"]
+        assert np.array_equal(tok_g, tok_c) and np.array_equal(
+            tok_g, gpu.models["client"]["tokenizer"](texts)["input_ids"])
+        g = gpu.analyze_batch_sentiment(texts, "client")
+        c = cpu.analyze_batch_sentiment(texts, "client")
+        worst, clear, same = 0.0, 0, True
+        for a, b in zip(g, c):
+            assert (a["prediction"] == "") == (b["prediction"] == "")
+            if not b["probabilities"]:
+                continue
+            pa, pb = np.asarray(a["probabilities"]), np.asarray(
+                b["probabilities"])
+            worst = max(worst, float(np.abs(pa - pb).max()))
+            top2 = np.sort(pb)[-2:]
+            if top2[1] - top2[0] > TEXT_PROB_TOL:
+                clear += 1
+                same &= a["prediction"] == b["prediction"]
+        log(f"[text card vs cpu] {name}: {len(texts)} texts, tokens "
+            f"{tok_g.shape}, ids equal on both; probabilities max_abs "
+            f"{worst:.2e} (tol {TEXT_PROB_TOL:g}); predictions equal on "
+            f"{clear} clear texts: {same}")
+        assert worst <= TEXT_PROB_TOL and same and clear > 0
+
+
+def int8_phase(seed: int, work: Path, models: Path, bf16_engine) -> dict:
+    """Phase 7c: int8 on a tiny engine (card vs CPU), then the production
+    run with ``quantization: int8``, then one 48 x 1280 batch timed int8
+    beside bf16."""
+    from audio_processor_tpu_torch.models import wav2vec2bert as w2v
+    from audio_processor_tpu_torch.pipeline.chunker import Chunk, chunk_batch
+
+    small_reference(seed, "auto", quantization="int8")
+    res = production_run(models, work / "run7c", seed + 17, 2, 0,
+                         "[int8 production]", quantization="int8")
+    int8_engine = res["engine"]
+    assert w2v.quantize_model(int8_engine.model) is int8_engine.model
+    # One full batch, 16 chunks x 25 s (48 x 1280), in turns.
+    zeros_rng = np.random.default_rng(seed + 1)
+    big = [Chunk("t.wav", i, 0.0, 25.0,
+                 agent=(0.1 * zeros_rng.standard_normal(400000)).astype(
+                     np.float32),
+                 client=(0.1 * zeros_rng.standard_normal(400000)).astype(
+                     np.float32)) for i in range(16)]
+    (bb,) = chunk_batch(big, bf16_engine.bucket_samples)
+    bbuf, blen = bf16_engine._prepare_fused_buffer(bb, 16)
+    walls = {"bf16": [], "int8": []}
+    for name in ("bf16", "int8", "int8", "bf16"):
+        eng = bf16_engine if name == "bf16" else int8_engine
+        ub, ul = eng._upload(bbuf), eng._upload(blen)
+        eng._fused(ub, ul, bb.bucket_len)
+        torch.cuda.synchronize()
+        for _ in range(3):
+            t0 = time.perf_counter()
+            eng._fused(ub, ul, bb.bucket_len)
+            torch.cuda.synchronize()
+            walls[name].append(time.perf_counter() - t0)
+    log(f"[int8] card: {smi_line()}")
+    log(f"[int8] wall per 48 x 1280 batch (host clock, in turns bf16, int8, "
+        f"int8, bf16): bf16 {[round(w, 4) for w in walls['bf16']]} s, int8 "
+        f"{[round(w, 4) for w in walls['int8']]} s; best bf16 "
+        f"{min(walls['bf16']):.4f} s, int8 {min(walls['int8']):.4f} s")
+    return {"walls": walls, "launches": res["launches"]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -735,6 +1257,13 @@ def main() -> int:
     flash.update(main_path(args.seed, "flash", 4, 1))
     assert rel["other"] == 0 and flash["other"] == 0
     ablation = ablation_path(args.seed)
+    with tempfile.TemporaryDirectory() as tmp:
+        prod = production(args.seed, Path(tmp))
+        text_card_vs_cpu(prod["models"], prod["rows"])
+        int8 = int8_phase(args.seed, Path(tmp), prod["models"],
+                          prod["engine"])
+        del prod
+    assert int8["launches"] > 0
     assert "jax" not in sys.modules
     assert not any(m.split(".")[0] == "audio_processor_tpu"
                    for m in sys.modules), "the JAX package was imported"

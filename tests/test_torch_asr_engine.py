@@ -225,6 +225,9 @@ def test_warmup_dispatches_and_counts(engines):
 
 
 def test_unported_configuration_raises():
+    """int8 now builds an engine whose encoder is W8A8 (the given model
+    untouched; tests/test_torch_quant.py holds it against JAX); an
+    unknown quantization mode and the unfused path still raise."""
     cfg = PipelineConfig(chunk_duration_sec=4.0,
                          length_buckets_sec=(2.0, 4.0))
     tiny = tw.build_synthetic(tw.W2VBertConfig(vocab_size=8, **KW),
@@ -232,11 +235,21 @@ def test_unported_configuration_raises():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             ASREngine(cfg, device="cuda", model=tiny)
-    for extras in ({"quantization": "int8"},
-                   {"fuse_acoustic_features": False}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ASREngine(PipelineConfig.from_dict({**cfg.to_dict(), **extras}),
-                      device="cpu", model=tiny)
+    int8 = ASREngine(PipelineConfig.from_dict({**cfg.to_dict(),
+                                               "quantization": "int8"}),
+                     device="cpu", model=tiny)
+    assert int8.quantization == "int8" and int8.model is not tiny
+    assert type(int8.model.layers[0].ffn1.intermediate_dense).__name__ == \
+        "QuantLinear"
+    assert type(tiny.layers[0].ffn1.intermediate_dense).__name__ == "Linear"
+    with pytest.raises(ValueError, match="quantization"):
+        ASREngine(PipelineConfig.from_dict({**cfg.to_dict(),
+                                            "quantization": "int4"}),
+                  device="cpu", model=tiny)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ASREngine(PipelineConfig.from_dict({**cfg.to_dict(),
+                                            "fuse_acoustic_features": False}),
+                  device="cpu", model=tiny)
     flash = PipelineConfig.from_dict({**cfg.to_dict(),
                                       "attention_impl": "flash"})
     assert ASREngine(flash, device="cpu",

@@ -2,7 +2,9 @@
 ``audio_processor_tpu_torch``, ``chip_smoke.py`` and the port's tools
 loads neither JAX nor any module of the JAX package
 ``audio_processor_tpu``, and no source of the port names that package
-in an import statement, lazy ones inside functions included."""
+in an import statement, lazy ones inside functions included. Loading HF
+checkpoints and tokenizing text needs none of ``transformers``,
+``safetensors``, ``tokenizers`` or ``orbax`` either."""
 
 import ast
 import json
@@ -63,6 +65,58 @@ def test_no_source_names_the_jax_package(root):
                  for name in _imported_names(f)
                  if name.split(".")[0] in ("jax", "audio_processor_tpu")]
     assert offenders == []
+
+
+# Loads a saved HF ASR directory and a BERT classifier directory through
+# the port's loaders and tokenizer, runs the text analyzer on the CPU and
+# prints which of the libraries the JAX package loads them with are loaded.
+LOAD_HF = r"""
+import json, sys
+
+from audio_processor_tpu_torch.config import PipelineConfig
+from audio_processor_tpu_torch.models.bert_tokenizer import BertTokenizer
+from audio_processor_tpu_torch.models.checkpoint import (
+    load_or_convert_w2v_bert,
+)
+from audio_processor_tpu_torch.pipeline.sentiment import TextSentimentAnalyzer
+
+w2v_dir, bert_dir = sys.argv[1:3]
+cfg, sd, vocab = load_or_convert_w2v_bert(w2v_dir)
+ids = BertTokenizer.from_pretrained(bert_dir)(["salam labas"])["input_ids"]
+text = TextSentimentAnalyzer(PipelineConfig(
+    client_text_model_path=bert_dir, agent_text_model_path=bert_dir),
+    device="cpu")
+res = text.analyze_batch_sentiment(["salam labas bikhir", "ok"], "client")
+banned = ("jax", "jaxlib", "audio_processor_tpu", "transformers",
+          "safetensors", "tokenizers", "orbax")
+print(json.dumps({"layers": cfg.num_hidden_layers, "tensors": len(sd),
+                  "vocab": len(vocab), "ids": ids.tolist(),
+                  "available": text.models_available,
+                  "predictions": [r["prediction"] for r in res],
+                  "bad": sorted(m for m in sys.modules
+                                if m.split(".")[0] in banned)}))
+"""
+
+
+def test_hf_loading_and_text_sentiment_load_no_hf_library(tmp_path):
+    from tests.test_sentiment import CLIENT_LABELS, _save_text_model
+    from tests.test_torch_hf_checkpoint import _save_w2v
+
+    w2v_dir, bert_dir = tmp_path / "w2v", tmp_path / "bert"
+    bert_dir.mkdir()
+    _save_w2v(w2v_dir)
+    _save_text_model(bert_dir, CLIENT_LABELS, 0)
+    r = subprocess.run([sys.executable, "-c", LOAD_HF, str(w2v_dir),
+                        str(bert_dir)], cwd=REPO, capture_output=True,
+                       text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-4000:]
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    assert out["bad"] == []
+    assert out["layers"] == 3 and out["tensors"] > 50 and out["vocab"] >= 32
+    assert out["available"] is True
+    assert out["predictions"][0] in CLIENT_LABELS
+    assert out["predictions"][1] == ""
+    assert out["ids"][0][0] == 2 and out["ids"][0][-1] == 3   # [CLS] .. [SEP]
 
 
 def test_native_library_lives_in_the_port():

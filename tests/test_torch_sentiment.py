@@ -144,8 +144,23 @@ def test_default_device_is_cuda_and_never_falls_back_to_cpu():
             acoustic.extract_features([np.zeros(16000, np.float32)], 16000)
 
 
-def test_configured_text_model_raises():
-    cfg = PipelineConfig(client_text_model_path="/models/c",
-                         agent_text_model_path="/models/a")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_sentiment.SentimentAnalyzer(cfg)
+def test_configured_text_model_raises(tmp_path, caplog):
+    """Configured text paths load (tests/test_torch_text_sentiment.py);
+    paths that hold no checkpoint fail to load as in the JAX package: the
+    error is logged and text sentiment is disabled, with no exception out
+    of the constructor. What still raises is the load itself."""
+    cfg = PipelineConfig(client_text_model_path=str(tmp_path / "c"),
+                         agent_text_model_path=str(tmp_path / "a"))
+    with caplog.at_level("ERROR"):
+        port = port_sentiment.SentimentAnalyzer(cfg, device="cpu")
+    ref = jax_sentiment.SentimentAnalyzer(
+        jconfig.PipelineConfig.from_dict(cfg.to_dict()))
+    assert "Failed to load text models" in caplog.text
+    assert not port.text_analyzer.models_available
+    assert port.text_analyzer.models_available == \
+        ref.text_analyzer.models_available
+    texts = ["salam labas bikhir", "ok"]
+    assert port.text_analyzer.analyze_batch_sentiment(texts, "agent") == \
+        ref.text_analyzer.analyze_batch_sentiment(texts, "agent")
+    with pytest.raises(FileNotFoundError):
+        port.text_analyzer._load_one(str(tmp_path / "c"))

@@ -146,13 +146,28 @@ def test_kernel_paths_run_plain_off_their_length_multiple(shared, impl):
 
 
 def test_unported_options_raise(shared):
+    """An unknown attention path and an unknown param leaf raise; int8
+    params (``kernel_q`` + per-channel ``scale``) now convert to the int8
+    layers' ``weight_q`` [out, in] and ``scale``, while a LayerNorm's
+    ``scale`` stays its ``weight``."""
     _, _, model, feats, _ = shared
     assert tw.resolve_attention_impl("flash", torch.device("cpu")) == "flash"
     with pytest.raises(ValueError, match="attention_impl"):
         model(torch.from_numpy(feats), attention_impl="flash_xla")
-    with pytest.raises(NotImplementedError, match="int8"):
+    kq = np.arange(6, dtype=np.int8).reshape(2, 3)
+    sd = tw.params_from_jax({"feature_projection": {
+        "projection": {"kernel_q": kq, "scale": np.ones(3, np.float32)},
+        "layer_norm": {"scale": np.ones(2, np.float32)}},
+        "lm_head": {}, "layers": {}}, tw.W2VBertConfig(**KW))
+    assert sd["feature_projection.projection.weight_q"].dtype == torch.int8
+    np.testing.assert_array_equal(
+        sd["feature_projection.projection.weight_q"].numpy(), kq.T)
+    assert set(sd) == {"feature_projection.projection.weight_q",
+                       "feature_projection.projection.scale",
+                       "feature_projection.layer_norm.weight"}
+    with pytest.raises(ValueError, match="unexpected param"):
         tw.params_from_jax({"feature_projection": {"projection": {
-            "kernel_q": np.zeros((2, 2), np.int8)}}, "lm_head": {},
+            "kernel_int4": np.zeros((2, 2))}}, "lm_head": {},
             "layers": {}}, tw.W2VBertConfig(**KW))
 
 

@@ -3,14 +3,16 @@
 CUDA card.
 
     python3 tools/profile_torch_fused.py [--seed N]
-        [--attention-impl {flash_rel,flash}]
+        [--attention-impl {flash_rel,flash}] [--quantization {none,int8}]
 
 Builds ``audio_processor_tpu_torch.pipeline.asr_engine.ASREngine`` in
 synthetic mode (w2v-bert-2.0 width, random weights from the seed, bf16),
 makes one full batch of 16 chunks x 25 s (48 encoder rows x 1280
 frames, int16 wire) under the chosen attention (``flash_rel``, the
 default, or ``flash``: the materialised bf16 bias and the flash
-kernel), warms it up, times ``_fused`` with a host clock
+kernel) and, with ``--quantization int8``, the encoder's dense layers as
+W8A8 (int8 products through ``torch._int_mm``), warms it up, times
+``_fused`` with a host clock
 around ``torch.cuda.synchronize()``, then runs it once more under
 ``torch.profiler`` and reads the exported Chrome trace. Only device
 activity counts (kernels, memcpy, memset), so host-side operator
@@ -48,8 +50,9 @@ CATEGORIES = (
     ("flash_rel", ("flash_rel_kernel",)),
     ("flash", ("flash_attention_kernel",)),
     ("bias gather", ("gather",)),
-    ("gemm", ("nvjet", "gemm", "xmma", "cutlass")),
     ("cast/copy", ("copy_kernel",)),
+    ("int8 gemm", ("s8", "i8", "imma", "int8")),
+    ("gemm", ("nvjet", "gemm", "xmma", "cutlass")),
     ("layer_norm", ("layer_norm",)),
     ("conv", ("conv",)),
     ("softmax/reduce", ("softmax", "reduce_kernel")),
@@ -117,6 +120,8 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--attention-impl", choices=("flash_rel", "flash"),
                     default="flash_rel")
+    ap.add_argument("--quantization", choices=("none", "int8"),
+                    default="none")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_torch_fused: needs a CUDA device")
@@ -125,12 +130,13 @@ def main() -> int:
 
     cfg = PipelineConfig.from_dict({"chunk_batch_size": 16,
                                     "enable_mixed_precision": True,
-                                    "attention_impl": args.attention_impl})
+                                    "attention_impl": args.attention_impl,
+                                    "quantization": args.quantization})
     engine = ASREngine(cfg, device="cuda")
     buf, lengths, bucket = make_batch(engine, args.seed)
     print(f"batch: {tuple(buf.shape)} {buf.dtype} -> encoder "
           f"{3 * buf.shape[0]} rows, attention {engine.attention_impl}, "
-          f"{engine.dtype}", flush=True)
+          f"{engine.dtype}, quantization {engine.quantization}", flush=True)
 
     for _ in range(3):
         engine._fused(buf, lengths, bucket)
