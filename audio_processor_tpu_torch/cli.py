@@ -5,8 +5,11 @@
 Same flags as the reference CLI, plus ``--device`` (default ``cuda``;
 the CLI refuses to start when CUDA is absent, and ``--device cpu`` must
 be asked for). Wires DB + monitor + processor, runs retention cleanup
-and the batch sweep(s). ``--serve`` (HTTP/gRPC serving) is not ported
-yet.
+and the batch sweep(s); ``enable_profiling: true`` traces the first
+sweep with torch.profiler (obs/profiler.py). ``--serve`` (HTTP/gRPC
+serving) and multi-process launches are not ported yet: a launch that
+names more than one process (``JAX_COORDINATOR_ADDRESS``, ``WORLD_SIZE``)
+is refused before any file is scanned.
 """
 
 from __future__ import annotations
@@ -132,6 +135,11 @@ def main(argv=None) -> int:
         overrides["output_folder"] = args.output
     cfg = load_config(args.config, overrides)
     setup_logging(cfg.logs_folder)
+    from audio_processor_tpu_torch.pipeline.engine import (
+        DataProcessor, refuse_multi_process,
+    )
+
+    refuse_multi_process()
     try:
         cfg.validate()
     except ValueError as e:
@@ -188,7 +196,6 @@ def main(argv=None) -> int:
         monitor.start_monitoring()
 
     from audio_processor_tpu_torch.host.topics import TopicClassifier
-    from audio_processor_tpu_torch.pipeline.engine import DataProcessor
 
     processor = DataProcessor(cfg, db_manager=db_manager,
                               topic_classifier=TopicClassifier(cfg),
@@ -199,7 +206,10 @@ def main(argv=None) -> int:
 
     rc = 0
     try:
-        processor.run()
+        from audio_processor_tpu_torch.obs.profiler import maybe_trace
+
+        with maybe_trace(cfg):
+            processor.run()
         while args.watch > 0:
             logger.info("Watch mode: sleeping %.0fs before next sweep",
                         args.watch)

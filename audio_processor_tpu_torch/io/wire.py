@@ -3,6 +3,17 @@
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+
+def upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Host array -> tensor on ``device``. On CUDA the copy goes through
+    pinned staging and is asynchronous (the caching host allocator keeps
+    the block until the copy is done)."""
+    t = torch.from_numpy(arr)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
 
 
 def maybe_int16_wire(x: np.ndarray) -> np.ndarray:

@@ -12,6 +12,14 @@ every sub-batch on the device and returns a closure that fetches and
 decodes, so the pipeline overlaps batch N+1's device work with batch
 N's host work; CUDA launches are asynchronous like JAX dispatch).
 
+The mono-rows program (:meth:`ASREngine._mono`, the reference's
+``_mono_fn``) transcribes [N, L] rows of one view: the VAD segments of
+the message path (:meth:`transcribe_mono_segments`, every bucket
+dispatched before any fetch, 12/24/48-row tails; greedy ids, or log
+posteriors decoded by CTC prefix beam search when ``beam_width > 1``),
+and the three views of each chunk under ``fuse_acoustic_features:
+false`` (no acoustic features then, as in the reference).
+
 Weights: an HF checkpoint directory when ``transcription_model`` points
 at one (models/checkpoint.py: converted once, then restored from its
 ``torch_converted/`` cache), else seeded random weights with the default
@@ -19,14 +27,13 @@ Darija vocabulary (synthetic mode, logged). ``quantization: int8`` runs
 the encoder's dense layers as W8A8 (models/quant.py), on a loaded or a
 given model alike.
 
-Not ported yet (ROADMAP.md, Queue 1): the message-path mono programs
-(``_mono_fn``/``_dispatch_rows``, and with them the unfused path) and
-device meshes.
+Not ported yet (ROADMAP.md, Queue 1): device meshes.
 """
 
 from __future__ import annotations
 
 import logging
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence
@@ -41,7 +48,9 @@ from audio_processor_tpu_torch.dsp.fbank import (
     HOP_LENGTH, STRIDE, log_mel_frontend,
 )
 from audio_processor_tpu_torch.io import native
+from audio_processor_tpu_torch.io.wire import maybe_int16_wire, upload
 from audio_processor_tpu_torch.models import wav2vec2bert as w2v
+from audio_processor_tpu_torch.models.ctc_beam import ctc_beam_search
 from audio_processor_tpu_torch.models.checkpoint import (
     load_or_convert_w2v_bert,
 )
@@ -72,13 +81,21 @@ def pad_seq(feats: torch.Tensor, mask: torch.Tensor):
 
 
 class _SubBatch:
-    """Slice view over a ChunkBatch (chunks and lengths only: the fused
-    path uploads raw agent/client rows)."""
+    """Slice view over a ChunkBatch. ``audio`` stays lazy so the fused
+    path (which uploads raw agent/client rows) never builds the dense
+    [N, 3, L] host tensor."""
 
     def __init__(self, batch, start: int, end: int):
         self.bucket_len = batch.bucket_len
         self.chunks = batch.chunks[start:end]
         self.lengths = batch.lengths[start:end]
+        self._batch = batch
+        self._span = (start, end)
+
+    @property
+    def audio(self):
+        s, e = self._span
+        return self._batch.audio[s:e]
 
     def __len__(self) -> int:
         return len(self.chunks)
@@ -100,11 +117,6 @@ class ASREngine:
             raise ValueError(
                 f"unknown quantization mode {self.quantization!r} "
                 "(expected 'none' or 'int8')")
-        if not config.get("fuse_acoustic_features", True):
-            raise NotImplementedError(
-                "fuse_acoustic_features: false needs the mono-rows "
-                "program, which is not ported yet (ROADMAP.md, Queue 1: "
-                "message path)")
         if model is None:
             model, vocab = self._load_or_init()
         self.model = model.to(self.device).eval()
@@ -118,30 +130,45 @@ class ASREngine:
             int(b * sr) for b in config.get(
                 "length_buckets_sec", (5.0, 10.0, 15.0, 20.0, 25.0)))
         # A chunk longer than the largest bucket would be truncated by
-        # the batcher; extend the bucket set instead.
+        # the batcher; extend the bucket set instead. The message path's
+        # VAD windows (capped at vad_max_segment_sec) flow through the
+        # same buckets, so they get the same guard.
         chunk_samples = int(float(config.get("chunk_duration_sec", 25.0))
                             * sr)
+        if config.get("enable_message_path", False):
+            chunk_samples = max(chunk_samples, int(
+                float(config.get("vad_max_segment_sec", 25.0)) * sr))
         if chunk_samples > max(self.bucket_samples):
             logger.warning(
-                "longest chunk (%s samples) exceeds the largest length "
-                "bucket; adding a %d-sample bucket",
+                "longest chunk/VAD segment (%s samples) exceeds the "
+                "largest length bucket; adding a %d-sample bucket",
                 chunk_samples, chunk_samples)
             self.bucket_samples = tuple(
                 sorted(set(self.bucket_samples) | {chunk_samples}))
         self.device_chunks = int(config.get("chunk_batch_size", 16))
+        self.device_batch = self.device_chunks * 3   # rows: 3 views each
         # int16 wire: half the host->device bytes, lossless for PCM16
         # sources. Disable for exact float parity on synthetic floats.
         self.int16_transfers = bool(config.get("int16_transfers", True))
+        self.fuse_acoustic_features = bool(
+            config.get("fuse_acoustic_features", True))
         self.emit_word_timestamps = bool(
             config.get("emit_word_timestamps", False))
+        # Message-path decoding: 1 = greedy (reference parity); > 1 =
+        # CTC prefix beam search over the log posteriors.
+        self.beam_width = int(config.get("beam_width", 1))
+        self.beam_word_bonus = float(config.get("beam_word_bonus", 0.0))
         self._frame_sec = HOP_LENGTH * STRIDE / sr  # 20 ms encoder frame
         self.attention_impl = w2v.resolve_attention_impl(
             config.get("attention_impl", "auto"), self.device)
-        # (bucket_len, device chunks) already dispatched: warmup()
-        # skips them.
+        # (bucket_len, device chunks), and ("mono", bucket_len, rows,
+        # beam) for the mono programs, already run: warmup() skips them.
         self._warmed: set = set()
-        # Fused-program calls; each runs every encoder layer once.
+        # Fused- and mono-program calls; each runs every encoder layer
+        # once. mono_shapes counts the mono calls by (rows, bucket_len).
         self.dispatches = 0
+        self.mono_dispatches = 0
+        self.mono_shapes: Counter = Counter()
 
     # ------------------------------------------------------------------
     def _load_or_init(self):
@@ -190,22 +217,45 @@ class ASREngine:
         self.dispatches += 1
         return ids, mask, af.reshape(N, 2, -1)
 
+    @torch.inference_mode()
+    def _mono(self, rows: torch.Tensor, lengths: torch.Tensor,
+              beam: bool):
+        """The mono-rows program: rows [N, L] (int16 or f32) and
+        lengths [N] -> (greedy ids [N, L'], mask [N, L']), or with
+        ``beam`` (log posteriors [N, L', vocab], mask), on the device.
+        One body (dequantize, fbank, pad, encoder) serves both heads,
+        so the greedy and beam numerics cannot drift apart."""
+        x = rows.float()
+        if rows.dtype == torch.int16:   # wire format (half the upload)
+            x = x * (1.0 / 32768.0)
+        feats, mask = log_mel_frontend(x, lengths)
+        feats, mask = pad_seq(feats, mask)
+        logits = self.model(feats, mask, dtype=self.dtype,
+                            attention_impl=self.attention_impl)
+        self.mono_dispatches += 1
+        self.mono_shapes[tuple(rows.shape)] += 1
+        if beam:
+            return torch.log_softmax(logits, dim=-1), mask
+        return (w2v.greedy_ctc_ids(logits, mask, self.model_cfg.pad_token_id),
+                mask)
+
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(arr)
-        if self.device.type == "cuda":
-            # Pinned staging makes the copy asynchronous; the caching
-            # host allocator keeps the block until the copy is done.
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.to(self.device)
+        return upload(arr, self.device)
 
     def warmup(self, all_buckets: bool = False,
-               tail_sizes: Optional[Sequence[int]] = None) -> int:
+               tail_sizes: Optional[Sequence[int]] = None,
+               message_rows: Optional[bool] = None) -> int:
         """Run the chunk programs once per (bucket, tail) shape before
         the timeout-bounded batch loop, so first-use costs (kernel
         build, cuBLAS heuristics, allocator growth) are not mistaken for
         a hung device. Covers the top bucket (``all_buckets``: every
         bucket) at the full and tail batch sizes; returns the number of
-        shapes run. Shapes already run in this process are skipped."""
+        shapes run. Shapes already run in this process are skipped.
+
+        ``message_rows`` (default: the config's enable_message_path)
+        also runs the mono-rows program at every bucket x {B/4, B/2, B}
+        rows (B = 3 x chunk_batch_size): VAD segments land in every
+        bucket."""
         buckets = (list(self.bucket_samples) if all_buckets
                    else [max(self.bucket_samples)])
         if tail_sizes is None:
@@ -215,13 +265,33 @@ class ASREngine:
         for bucket in buckets:
             zeros = np.zeros(bucket, np.float32)
             for n in sorted(set(tail_sizes)):
-                if (bucket, self._tail_size(n)) in self._warmed:
+                key = (bucket, self._tail_size(n)
+                       if self.fuse_acoustic_features
+                       else self.device_chunks)
+                if key in self._warmed:
                     continue
                 warm = [Chunk("warmup.wav", i, 0.0, 0.0,
                               agent=zeros, client=zeros)
                         for i in range(n)]
                 self.transcribe_chunks(warm)
                 n_shapes += 1
+        if message_rows is None:
+            message_rows = bool(
+                self.config.get("enable_message_path", False))
+        if message_rows:
+            B = self.device_batch
+            row_sizes = sorted({self._row_tail_size(1),
+                                self._row_tail_size(B // 2), B})
+            for bucket in self.bucket_samples:
+                for rows_n in row_sizes:
+                    key = ("mono", bucket, rows_n, self.beam_width > 1)
+                    if key in self._warmed:
+                        continue
+                    self._run_rows(
+                        np.zeros((rows_n, bucket), np.float32),
+                        np.full((rows_n,), bucket, np.int32), bucket)
+                    self._warmed.add(key)
+                    n_shapes += 1
         return n_shapes
 
     def _tail_size(self, n: int) -> int:
@@ -310,7 +380,7 @@ class ASREngine:
 
         prep_pool = None
         prep_futs: Dict[int, object] = {}
-        if len(subs) > 1:
+        if self.fuse_acoustic_features and len(subs) > 1:
             prep_pool = ThreadPoolExecutor(max_workers=2)
             for k in range(min(PREP_AHEAD, len(subs))):
                 prep_futs[k] = prep_pool.submit(_prep, k)
@@ -319,6 +389,14 @@ class ASREngine:
         try:
             for k, sub in enumerate(subs):
                 try:
+                    if not self.fuse_acoustic_features:
+                        rows, lengths = self._prepare_rows(sub)
+                        out = self._mono(self._upload(rows),
+                                         self._upload(lengths), beam=False)
+                        self._warmed.add((sub.bucket_len,
+                                          self.device_chunks))
+                        pending.append((sub.chunks, out, None))
+                        continue
                     if prep_pool is not None and k + PREP_AHEAD < len(subs):
                         prep_futs[k + PREP_AHEAD] = prep_pool.submit(
                             _prep, k + PREP_AHEAD)
@@ -346,7 +424,8 @@ class ASREngine:
             n = len(sub_chunks)
             if err is None:
                 try:
-                    ids, mask, af = (t.cpu().numpy() for t in out)
+                    ids, mask, *af = (t.cpu().numpy() for t in out)
+                    af = af[0][:n] if af else None   # unfused: none
                 except Exception as e:
                     logger.exception("ASR fetch failed: %s", e)
                     err = str(e)
@@ -359,7 +438,7 @@ class ASREngine:
                         "error": err,
                     }
                 continue
-            ids, mask, af = ids[:3 * n], mask[:3 * n], af[:n]
+            ids, mask = ids[:3 * n], mask[:3 * n]
             texts = batch_decode(ids, self.vocab, mask)
             for j, c in enumerate(sub_chunks):
                 r = {
@@ -370,9 +449,10 @@ class ASREngine:
                     "client_transcription":
                         remove_special_characters(texts[3 * j + 2]),
                     "error": "",
-                    "agent_acoustic_features": af[j, 0],
-                    "client_acoustic_features": af[j, 1],
                 }
+                if af is not None:
+                    r["agent_acoustic_features"] = af[j, 0]
+                    r["client_acoustic_features"] = af[j, 1]
                 if self.emit_word_timestamps:
                     for view, name in ((0, "mixed_words"),
                                        (1, "agent_words"),
@@ -400,3 +480,112 @@ class ASREngine:
             }))
             out_rows.append(row)
         return out_rows
+
+    def _prepare_rows(self, batch) -> tuple:
+        """Unfused path: [3N, L] float32 view rows (mixed, agent, client
+        per chunk) and lengths, padded to the static device batch."""
+        n = len(batch)
+        rows = batch.audio.reshape(n * 3, batch.bucket_len)
+        lengths = np.repeat(batch.lengths, 3).astype(np.int32)
+        B = self.device_batch
+        if rows.shape[0] < B:
+            pad = B - rows.shape[0]
+            rows = np.concatenate(
+                [rows, np.zeros((pad, batch.bucket_len), np.float32)])
+            lengths = np.concatenate(
+                [lengths, np.full((pad,), batch.bucket_len, np.int32)])
+        return rows, lengths
+
+    # ------------------------------------------------------------------
+    def _row_tail_size(self, n: int) -> int:
+        """Static row count for an n-row mono dispatch: the full device
+        batch mid-stream, or the smallest power-of-two fraction (>= 1/4)
+        that covers a final partial batch (a handful of VAD segments
+        padded to 48 rows would burn ~10x their device time)."""
+        B = self.device_batch
+        for _ in range(2):
+            half = B // 2
+            if n <= half and half >= 1:
+                B = half
+            else:
+                break
+        return B
+
+    def _dispatch_rows(self, rows: np.ndarray, lengths: np.ndarray,
+                       bucket_len: int):
+        """Upload [N, bucket_len] audio rows (int16 when every sample is
+        int16-exact), enqueue every sub-batch of the mono program, and
+        return a fetch closure, so callers holding several bucket
+        batches enqueue them all before fetching any. The closure
+        decodes greedily, or with CTC prefix beam search when
+        ``beam_width > 1``."""
+        beam = self.beam_width > 1
+        B = self.device_batch
+        n = rows.shape[0]
+        if self.int16_transfers:
+            rows = maybe_int16_wire(rows)
+        pending = []
+        for i in range(0, n, B):
+            sl_rows = rows[i:i + B]
+            sl_len = lengths[i:i + B].astype(np.int32)
+            valid = sl_rows.shape[0]
+            n_dev = self._row_tail_size(valid)
+            if valid < n_dev:  # pad to the static tail batch
+                pad = n_dev - valid
+                sl_rows = np.concatenate(
+                    [sl_rows, np.zeros((pad, bucket_len), rows.dtype)])
+                sl_len = np.concatenate(
+                    [sl_len, np.full((pad,), bucket_len, np.int32)])
+            pending.append((valid, self._mono(
+                self._upload(sl_rows), self._upload(sl_len), beam)))
+
+        def fetch() -> List[str]:
+            out_texts: List[str] = []
+            for valid, (out, mask) in pending:
+                out = out[:valid].cpu().numpy()
+                mask = mask[:valid].cpu().numpy()
+                if not beam:
+                    out_texts.extend(batch_decode(out, self.vocab, mask))
+                    continue
+                for b in range(valid):
+                    hyps = ctc_beam_search(
+                        out[b], self.vocab, beam_width=self.beam_width,
+                        word_bonus=self.beam_word_bonus,
+                        mask=mask[b].astype(bool))
+                    out_texts.append(hyps[0][0] if hyps else "")
+            return out_texts
+
+        return fetch
+
+    def _run_rows(self, rows: np.ndarray, lengths: np.ndarray,
+                  bucket_len: int) -> List[str]:
+        """Transcribe [N, L] audio rows: dispatch + immediate fetch."""
+        return self._dispatch_rows(rows, lengths, bucket_len)()
+
+    def transcribe_mono_segments(self, waves: List[np.ndarray]) -> List[str]:
+        """Transcribe variable-length mono segments (the VAD message
+        path). Every bucket batch is enqueued before any is fetched."""
+        if not waves:
+            return []
+        mono = [np.asarray(w, np.float32).reshape(-1) for w in waves]
+        chunks = [
+            Chunk(file_name="", chunk_idx=i, start_time=0.0, end_time=0.0,
+                  mixed=w, agent=w, client=w)
+            for i, w in enumerate(mono)
+        ]
+        texts: Dict[int, str] = {}
+        dispatched = []
+        for batch in chunk_batch(chunks, self.bucket_samples):
+            # Mono rows built directly (ChunkBatch.audio would build all
+            # three views only for view 0 to be kept).
+            rows = np.zeros((len(batch), batch.bucket_len), np.float32)
+            for j, c in enumerate(batch.chunks):
+                t = int(batch.lengths[j])
+                rows[j, :t] = c.mixed[:t]
+            dispatched.append((batch, self._dispatch_rows(
+                rows, batch.lengths, batch.bucket_len)))
+        for batch, fetch in dispatched:
+            out = fetch()
+            for j, c in enumerate(batch.chunks):
+                texts[c.chunk_idx] = out[j]
+        return [texts.get(i, "") for i in range(len(waves))]

@@ -14,9 +14,14 @@ What differs from the reference:
 - ``setup_models`` builds the port's ASR engine and sentiment analyzer
   on an explicit torch device;
 - ``_decode_one`` resamples through the port's ``prepare_and_split``;
-- ``run`` runs in one process: multi-process sharding, device meshes
-  and the VAD message path are not ported yet and raise
-  NotImplementedError when configured.
+- ``run`` runs in one process: multi-process sharding and device
+  meshes are not ported yet and raise NotImplementedError when
+  configured (:func:`refuse_multi_process` reads the launch's
+  environment, since an unsharded multi-process run would write every
+  row in every process).
+
+The VAD message path (``enable_message_path`` with a database) runs as
+in the reference: :meth:`DataProcessor._run_message_path`.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from __future__ import annotations
 import gc
 import json
 import logging
+import os
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -45,6 +51,34 @@ from audio_processor_tpu_torch.pipeline.markers import (
 )
 
 logger = logging.getLogger(__name__)
+
+
+def refuse_multi_process() -> None:
+    """Raise NotImplementedError when this process is one of several:
+    the JAX package's multi-host variables (``JAX_COORDINATOR_ADDRESS``
+    with ``JAX_NUM_PROCESSES`` unset or above 1, as its bootstrap would
+    join a cluster), a torchrun-style ``WORLD_SIZE`` above 1, or an
+    initialised ``torch.distributed`` group of more than one. The
+    reference shards calls by call-id hash there (parallel/distributed
+    ``owns_call``); the port has no such sharding yet, and every process
+    would write every row."""
+    reason = None
+    if os.environ.get("JAX_COORDINATOR_ADDRESS") and int(
+            os.environ.get("JAX_NUM_PROCESSES") or 0) != 1:
+        reason = ("JAX_COORDINATOR_ADDRESS is set (JAX_NUM_PROCESSES="
+                  f"{os.environ.get('JAX_NUM_PROCESSES')!r})")
+    elif int(os.environ.get("WORLD_SIZE") or 1) > 1:
+        reason = f"WORLD_SIZE={os.environ['WORLD_SIZE']}"
+    elif torch.distributed.is_available() \
+            and torch.distributed.is_initialized() \
+            and torch.distributed.get_world_size() > 1:
+        reason = "torch.distributed is initialised with world size " \
+            f"{torch.distributed.get_world_size()}"
+    if reason is not None:
+        raise NotImplementedError(
+            f"multi-process runs are not ported yet ({reason}); the "
+            "call-id sharding waits for ROADMAP.md Queue 1 item 6 "
+            "(parallel/)")
 
 
 class MemoryManager:
@@ -211,10 +245,6 @@ class DataProcessor:
 
     def setup_models(self):
         """Build the device engines lazily."""
-        if self.config.get("enable_message_path", False):
-            raise NotImplementedError(
-                "enable_message_path: the VAD message path is not ported "
-                "yet (ROADMAP.md, Queue 1: message path)")
         if self.asr_engine is None:
             if self.config.get("mesh_shape"):
                 raise NotImplementedError(
@@ -535,11 +565,104 @@ class DataProcessor:
                 self._in_flight.difference_update(str(f) for f in files)
 
     def _run_message_path(self, decoded: List[Dict]) -> None:
-        """VAD -> windows -> batched mono transcription -> message rows:
-        not ported yet (``setup_models`` refuses the configuration)."""
-        raise NotImplementedError(
-            "enable_message_path: the VAD message path is not ported yet "
-            "(ROADMAP.md, Queue 1: message path)")
+        """VAD -> windows -> batched mono transcription -> message
+        rows. Every channel of the batch goes through ONE multi-channel
+        VAD call (all enqueued before any fetch), and the segments of
+        EVERY file and both speakers through ONE transcription call, so
+        a lone speaker's few windows do not pad a device batch alone."""
+        from audio_processor_tpu_torch.pipeline.segmenter import (
+            SpeechBatchTranscriber,
+        )
+
+        if not hasattr(self, "_transcriber"):
+            self._transcriber = SpeechBatchTranscriber(
+                self.config, asr_engine=self.asr_engine)
+        segmenter = self._transcriber.segmenter
+        sr = int(self.config.get("target_sample_rate", 16000))
+
+        channels: List[tuple] = []       # (waveform, label)
+        chan_files: List[str] = []       # parallel: owning file stem
+        for d in decoded:
+            if d.get("waveform") is None or not d["chunks"]:
+                continue
+            wf = np.asarray(d["waveform"])
+            if wf.ndim == 1:
+                wf = wf[None]
+            agent = wf[0]
+            client = wf[1] if wf.shape[0] > 1 else wf[0]
+            channels.extend([(agent, "agent"), (client, "client")])
+            chan_files.extend([d["file"].stem, d["file"].stem])
+
+        all_segments: List[Dict] = []
+        spans: List[tuple] = []     # (file_stem, start, count|None)
+        if channels:
+            per_channel = segmenter.get_speech_segments_multi(
+                channels, sr)
+            for i in range(0, len(per_channel), 2):
+                a, b = per_channel[i], per_channel[i + 1]
+                if a is None or b is None:
+                    # VAD FAILED for this file (None) — distinct from
+                    # no speech ([]): skip its refresh entirely so a
+                    # transient error can't wipe the call's existing
+                    # message rows via the idempotent delete+insert.
+                    logger.error("VAD failed for %s; keeping existing "
+                                 "message rows", chan_files[i])
+                    self._bump("errors")
+                    spans.append((chan_files[i], len(all_segments),
+                                  None))
+                    continue
+                segs = a + b
+                spans.append((chan_files[i], len(all_segments),
+                              len(segs)))
+                all_segments.extend(segs)
+
+        if not any(count for _stem, _start, count in spans):
+            return
+
+        def insert_rows(stem: str, msgs: List[Dict]) -> None:
+            messages = sorted(msgs, key=lambda m: m.get("start", 0.0))
+            try:
+                # idempotent refresh on reprocess (watch-mode retries,
+                # cleared markers): replace the call's message set
+                self.db_manager.delete_messages_by_id_enregistrement(
+                    stem)
+            except Exception as e:
+                logger.error("Failed to clear messages for %s: %s",
+                             stem, e)
+            for i, m in enumerate(messages):
+                try:
+                    self.db_manager.insert_message({
+                        "id_enregistrement": stem,
+                        "text": m["text"], "speaker": m["speaker"],
+                        "order_message": i + 1})
+                except Exception as e:
+                    logger.error("Failed to insert message %d for %s: %s",
+                                 i + 1, stem, e)
+
+        try:
+            transcribed = segmenter.transcribe_segments_batched(
+                all_segments, sr)
+        except Exception as e:
+            # Per-file isolation: one failed batched call must not drop
+            # message rows for every file in the batch — retry each
+            # file's segments separately so only the genuinely failing
+            # file loses its messages.
+            logger.error("Batched mono transcription failed (%s); "
+                         "retrying per file", e)
+            for stem, start, count in spans:
+                if count is None:       # VAD failed: no refresh
+                    continue
+                try:
+                    insert_rows(stem, segmenter.transcribe_segments_batched(
+                        all_segments[start:start + count], sr))
+                except Exception as e2:
+                    logger.error("Mono transcription failed for %s: %s",
+                                 stem, e2)
+            return
+        for stem, start, count in spans:
+            if count is None:           # VAD failed: no refresh
+                continue
+            insert_rows(stem, transcribed[start:start + count])
 
     # ------------------------------------------------------------------
     def process_files_parallel(self, files: Sequence[Path]) -> int:
@@ -931,12 +1054,7 @@ class DataProcessor:
     # ------------------------------------------------------------------
     def run(self) -> int:
         logger.info("Starting audio processing on %s", self.device)
-        if torch.distributed.is_available() \
-                and torch.distributed.is_initialized() \
-                and torch.distributed.get_world_size() > 1:
-            raise NotImplementedError(
-                "multi-process runs are not ported yet (ROADMAP.md, "
-                "Queue 1: parallel/)")
+        refuse_multi_process()
         self.setup_models()
         input_dir = Path(self.config.get("input_folder", "./input"))
         if not input_dir.exists():

@@ -15,9 +15,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
 3. kernel vs plain: the flash-rel attention kernel against its plain
    PyTorch version on the card, fp32 and bf16 with ragged kv masks at
    B=2 (L from 64 to 1280, 320 among them), and bf16 at every (B, L) the
-   main path gives the kernel (up to B=48, H=16, L=1280) with a valid
-   length per batch row; both times at B=48, H=16, L=1280 on the inputs
-   just checked;
+   batch path and the message path give the kernel (B in {12, 24, 48} x
+   L in {256, 512, 768, 1024, 1280}, H=16) with a valid length per batch
+   row; both times at B=48, H=16, L=1280 on the inputs just checked;
 3b. the flash kernel against its plain version: fp32 and bf16 at B=2,
    L in {64, 256, 320, 512, 1280}, with the bias built as the model
    builds it (ragged kv mask, one batch row wholly masked), and without a
@@ -37,6 +37,16 @@ Phases, each of which fails the run (non-zero exit) on any error:
    card (kernel path) and on the CPU (plain path), same weights and
    audio: masks equal, ids equal off near-ties, features close;
 4b. the same under ``attention_impl: flash`` on both sides;
+4c. the message path's small reference, under ``flash_rel`` and under
+   ``flash``: PyanNet from a seeded pyannote-layout state dict
+   (num_outputs=3), windowed probabilities card vs CPU within VAD_TOL;
+   the energy detector's probabilities and mask card vs CPU; the tiny
+   engine's mono-rows program, ids equal off near-ties and masks equal;
+   ``beam_width: 4``, the card's texts equal ``ctc_beam_search`` of the
+   card's own log posteriors, which match the CPU's within 1e-4;
+   ``fuse_acoustic_features: false``, ids card vs CPU off near-ties; and
+   once (flash_rel) under ``enable_profiling: true`` through
+   ``obs.profiler.maybe_trace``: the trace names the flash-rel kernel;
 5. main path: 8 synthetic stereo calls of 100 s (3 at 8 kHz) through
    ``audio_processor_tpu_torch.pipeline.engine.DataProcessor`` at the
    full w2v-bert-2.0 width (random weights from the seed), bf16, CSV
@@ -70,10 +80,22 @@ Phases, each of which fails the run (non-zero exit) on any error:
    the CPU (ids equal off near-ties), then 2 calls through
    ``DataProcessor`` at full width with ``quantization: int8`` and text
    on (every file succeeds, 24 flash_rel launches per batch), and the
-   wall of one 48 x 1280 batch, int8 beside bf16.
+   wall of one 48 x 1280 batch, int8 beside bf16;
+8. the message path at full width: w2v-bert-2.0 width (random weights
+   from the seed, bf16), ``enable_message_path: true`` with a SQLite
+   ``DatabaseManager`` and ``vad_model_id`` naming a seeded PyanNet state
+   dict the script writes (pyannote key layout, num_outputs=3), over 4
+   stereo calls of 100 s (1 at 8 kHz). It fails unless every file
+   succeeds with no error, the segmenter runs PyanNet (no energy
+   fallback), no channel's VAD failed, every call has message rows with
+   order_message 1..n and speakers agent/client, and the flash-rel kernel
+   ran 24 times per fused and per mono dispatch (the flash kernel never).
+   Prints VAD ms per 100 s channel, mono-ASR ms per dispatch at every
+   (rows, bucket) (those the run hit marked), the segment count, the
+   VAD and ASR shares, and the phase's RTFx.
 
 Kernel launch counts are set to 0 just before each of the paths 5, 5b,
-6, 7 and 7c and read just after. The second-to-last line is the kernels' JSON
+6, 7, 7c and 8 and read just after. The second-to-last line is the kernels' JSON
 record (per kernel: launches, error, ms, plain ms, the bound computed
 from the timed inputs and what sets it, and the library call's ms or
 null); the last line is ``{"ok": true, "device": {...}}``. Imports
@@ -111,6 +133,12 @@ FEAT_ATOL = 2e-4       # acoustic features, relative to max(|ref|, 1)
 # (encoder rows B, frames L) of every kernel call in the main-path phase:
 # 3 views x (16, 8 or 4 chunks) at the 25 s (1280) and 5 s (256) buckets.
 MAIN_SHAPES = [(12, 256), (12, 1280), (24, 256), (24, 1280), (48, 1280)]
+# Every (rows, frames) of the message path's mono-rows program: 12, 24 or
+# 48 rows at each bucket's frames (5 to 25 s); a superset of MAIN_SHAPES.
+MESSAGE_SHAPES = [(b, n) for b in (12, 24, 48)
+                  for n in (256, 512, 768, 1024, 1280)]
+VAD_TOL = 1e-4         # PyanNet / energy VAD probabilities, card vs CPU (fp32)
+LOGP_TOL = 1e-4        # tiny engine's fp32 log posteriors, card vs CPU
 # Every (B, L) the flash kernel is checked at in bf16 (a superset of the
 # batch path's shapes).
 FLASH_SHAPES = [(b, n) for b in (12, 24, 48) for n in (256, 1280)]
@@ -320,10 +348,10 @@ def kernel_vs_plain(seed: int) -> dict:
             worst = max(worst, _compare(
                 fra, args, left, P,
                 f"B= 2 H=16 L={L:4d} P={P:3d} left={left:3d} tail"))
-    # Every (B, L) the main path gives the kernel (bf16, P=73, left=64),
-    # each batch row with its own valid length; B=48, L=1280 last, whose
-    # inputs the timing below reuses.
-    for B, L in MAIN_SHAPES:
+    # Every (B, L) the batch and the message path give the kernel (bf16,
+    # P=73, left=64), each batch row with its own valid length; B=48,
+    # L=1280 last, whose inputs the timing below reuses.
+    for B, L in MESSAGE_SHAPES:
         args = _inputs(gen, B, L, 73, 64, torch.bfloat16, "rows")
         worst = max(worst, _compare(
             fra, args, 64, 73, f"B={B:2d} H=16 L={L:4d} P= 73 left= 64 rows"))
@@ -1241,6 +1269,352 @@ def int8_phase(seed: int, work: Path, models: Path, bf16_engine) -> dict:
     return {"walls": walls, "launches": res["launches"]}
 
 
+# ---------------------------------------------------------- phases 4c, 8
+def pyannote_state_dict(seed: int, num_outputs: int = 3) -> dict:
+    """A PyanNet state dict in pyannote.audio's key layout at its default
+    geometry (SincNet 80 filters, convs 60, 2-layer BiLSTM 128, linear
+    128 x 2), seeded. The classifier is scaled up (x30, bias -1) so the
+    random network's frame probabilities spread around 0.5 instead of
+    sitting at it: the VAD then finds speech on most frames, with gaps."""
+    g = torch.Generator().manual_seed(seed)
+
+    def n(*shape, scale):
+        return scale * torch.randn(*shape, generator=g)
+
+    sd = {"sincnet.wav_norm1d.weight": 1 + n(1, scale=0.1),
+          "sincnet.wav_norm1d.bias": n(1, scale=0.1),
+          "sincnet.conv1d.0.filterbank.low_hz_":
+              torch.linspace(30.0, 6000.0, 80)[:, None],
+          "sincnet.conv1d.0.filterbank.band_hz_":
+              torch.linspace(80.0, 400.0, 80)[:, None]}
+    for i, (c_in, c_out) in ((1, (80, 60)), (2, (60, 60))):
+        sd[f"sincnet.conv1d.{i}.weight"] = n(c_out, c_in, 5,
+                                             scale=(5 * c_in) ** -0.5)
+        sd[f"sincnet.conv1d.{i}.bias"] = n(c_out, scale=0.1)
+    for i, c in enumerate((80, 60, 60)):
+        sd[f"sincnet.norm1d.{i}.weight"] = 1 + n(c, scale=0.1)
+        sd[f"sincnet.norm1d.{i}.bias"] = n(c, scale=0.1)
+    for layer, c_in in ((0, 60), (1, 256)):
+        for sfx in ("", "_reverse"):
+            sd[f"lstm.weight_ih_l{layer}{sfx}"] = n(512, c_in,
+                                                    scale=c_in ** -0.5)
+            sd[f"lstm.weight_hh_l{layer}{sfx}"] = n(512, 128,
+                                                    scale=128 ** -0.5)
+            sd[f"lstm.bias_ih_l{layer}{sfx}"] = n(512, scale=0.1)
+            sd[f"lstm.bias_hh_l{layer}{sfx}"] = n(512, scale=0.1)
+    for i, c_in in enumerate((256, 128)):
+        sd[f"linear.{i}.weight"] = n(128, c_in, scale=c_in ** -0.5)
+        sd[f"linear.{i}.bias"] = n(128, scale=0.1)
+    sd["classifier.weight"] = n(num_outputs, 128, scale=30 * 128 ** -0.5)
+    sd["classifier.bias"] = torch.full((num_outputs,), -1.0)
+    return sd
+
+
+def _clear_ids(cpu, rows, lengths, ids_c, ids_g, n_real, label):
+    """Greedy ids card vs CPU on the real rows' frames whose CPU top-2
+    margin exceeds MARGIN; returns (clear, total) frame counts."""
+    from audio_processor_tpu_torch.dsp.fbank import log_mel_frontend
+    from audio_processor_tpu_torch.pipeline.asr_engine import pad_seq
+
+    feats, mask = pad_seq(*log_mel_frontend(rows, lengths))
+    with torch.inference_mode():
+        logits = cpu.model(feats, mask, attention_impl=cpu.attention_impl)
+    top2 = logits.topk(2, dim=-1).values
+    clear = ((top2[..., 0] - top2[..., 1]) > MARGIN)[:n_real] \
+        & mask[:n_real]
+    same = torch.equal(ids_c[:n_real][clear], ids_g[:n_real][clear])
+    if not (same and int(clear.sum()) > 0):
+        raise AssertionError(f"card and CPU ids differ: {label}")
+    return int(clear.sum()), int(mask[:n_real].sum())
+
+
+def message_reference(seed: int, impl: str, profile: bool) -> None:
+    """Phase 4c: the message path's parts on the card against the CPU,
+    fp32, same weights and audio; ``impl`` as in :func:`small_reference`.
+    ``profile``: also run one mono dispatch under ``enable_profiling``."""
+    from audio_processor_tpu_torch.config import PipelineConfig
+    from audio_processor_tpu_torch.io.decode import load_audio
+    from audio_processor_tpu_torch.models import vad
+    from audio_processor_tpu_torch.models import wav2vec2bert as w2v
+    from audio_processor_tpu_torch.models.ctc_beam import ctc_beam_search
+    from audio_processor_tpu_torch.models.tokenizer import CTCVocab
+    from audio_processor_tpu_torch.obs.profiler import maybe_trace
+    from audio_processor_tpu_torch.pipeline.asr_engine import ASREngine
+    from audio_processor_tpu_torch.pipeline.chunker import (
+        Chunk, chunk_batch, split_audio,
+    )
+
+    tag = f"[message reference {impl}]"
+    with tempfile.TemporaryDirectory() as tmp:
+        _write_calls(Path(tmp) / "in", seed + 4, 1, 23.0, 0)
+        wave, sr = load_audio(Path(tmp) / "in" / "call-00.wav")
+    # PyanNet, windowed, from a pyannote-layout state dict.
+    vcfg = vad.PyanNetConfig(num_outputs=3)
+    sd = vad.convert_pyannet(pyannote_state_dict(seed + 4), vcfg)
+    probs = {}
+    for dev in ("cpu", "cuda"):
+        model = vad.PyanNet(vcfg)
+        model.load_state_dict(sd)
+        probs[dev] = vad.pyannet_probs_windowed(model.to(dev).eval(),
+                                                wave[0])
+    dv = float(np.abs(probs["cuda"] - probs["cpu"]).max())
+    x = torch.from_numpy(np.ascontiguousarray(wave))
+    lengths = torch.tensor([wave.shape[1], wave.shape[1] - 12345])
+    (ep_c, em_c), (ep_g, em_g) = (
+        (t.cpu() for t in vad.energy_vad_probs(x.to(d), lengths.to(d)))
+        for d in ("cpu", "cuda"))
+    de = float((ep_g - ep_c).abs().max())
+    log(f"{tag} PyanNet windowed probs ({probs['cpu'].shape[0]} frames of "
+        f"23 s): max_abs {dv:.3e}; energy VAD probs max_abs {de:.3e}, masks "
+        f"equal {torch.equal(em_c, em_g)} (tol {VAD_TOL:g})")
+    assert dv <= VAD_TOL and de <= VAD_TOL and torch.equal(em_c, em_g)
+
+    vocab = CTCVocab.darija_default()
+    mcfg = w2v.W2VBertConfig(vocab_size=len(vocab), hidden_size=128,
+                             num_hidden_layers=2, num_attention_heads=2,
+                             intermediate_size=256)
+    base = {"enable_mixed_precision": False, "chunk_duration_sec": 10.0,
+            "overlap_sec": 1.0, "length_buckets_sec": [5.0, 10.0],
+            "chunk_batch_size": 4, "attention_impl": impl}
+
+    def pair(**extra):
+        cfg = PipelineConfig.from_dict({**base, **extra})
+        return tuple(ASREngine(cfg, device=d, model=w2v.build_synthetic(
+            mcfg, torch.device("cpu"), seed=seed), vocab=vocab)
+            for d in ("cpu", "cuda"))
+
+    # VAD-like segments of the call, 3 to 9.5 s, both channels, padded
+    # to each bucket's row tail.
+    waves = [wave[i % 2, int(s * sr):int((s + d) * sr)] for i, (s, d) in
+             enumerate(((0.0, 3.0), (2.5, 9.5), (11.0, 4.2), (15.0, 7.7),
+                        (1.0, 5.0)))]
+
+    def mono_rows(engine):
+        chunks = [Chunk("", i, 0.0, 0.0, mixed=w)
+                  for i, w in enumerate(waves)]
+        for batch in chunk_batch(chunks, engine.bucket_samples):
+            n_dev = engine._row_tail_size(len(batch))
+            rows = np.zeros((n_dev, batch.bucket_len), np.float32)
+            lens = np.full(n_dev, batch.bucket_len, np.int32)
+            rows[:len(batch)] = batch.audio[:, 0]
+            lens[:len(batch)] = batch.lengths
+            yield batch, torch.from_numpy(rows), torch.from_numpy(lens)
+
+    cpu, gpu = pair()
+    for batch, r, ln in mono_rows(cpu):
+        ids_c, mask_c = cpu._mono(r, ln, beam=False)
+        ids_g, mask_g = (t.cpu() for t in gpu._mono(r.cuda(), ln.cuda(),
+                                                    beam=False))
+        assert torch.equal(mask_c, mask_g), "masks differ"
+        n_clear, n_valid = _clear_ids(cpu, r, ln, ids_c, ids_g, len(batch),
+                                      f"mono bucket {batch.bucket_len}")
+        log(f"{tag} mono rows {tuple(r.shape)}: ids equal on "
+            f"{n_clear}/{n_valid} clear valid frames, masks equal")
+
+    # beam_width 4: the card's texts are ctc_beam_search of its own log
+    # posteriors, which match the CPU's.
+    cpu, gpu = pair(beam_width=4)
+    texts = gpu.transcribe_mono_segments(waves)
+    expect, worst = {}, 0.0
+    for batch, r, ln in mono_rows(gpu):
+        lp_g, m_g = (t.cpu() for t in gpu._mono(r.cuda(), ln.cuda(),
+                                                beam=True))
+        lp_c, m_c = cpu._mono(r, ln, beam=True)
+        real = m_c[:len(batch)]
+        worst = max(worst, float((lp_g[:len(batch)][real]
+                                  - lp_c[:len(batch)][real]).abs().max()))
+        for j, c in enumerate(batch.chunks):
+            expect[c.chunk_idx] = ctc_beam_search(
+                lp_g[j].numpy(), vocab, beam_width=4,
+                mask=m_g[j].numpy())[0][0]
+    same = texts == [expect[i] for i in range(len(waves))]
+    log(f"{tag} beam_width 4: {len(texts)} texts equal ctc_beam_search of "
+        f"the card's log posteriors: {same}; log posteriors card vs CPU "
+        f"max_abs {worst:.3e} (tol {LOGP_TOL:g})")
+    assert same and worst <= LOGP_TOL
+
+    # fuse_acoustic_features: false, the three views through mono.
+    cpu, gpu = pair(fuse_acoustic_features=False)
+    for batch in chunk_batch(split_audio(wave, sr, "ref.wav", 10.0, 1.0),
+                             cpu.bucket_samples):
+        rows, lens = cpu._prepare_rows(batch)
+        r, ln = torch.from_numpy(rows), torch.from_numpy(lens)
+        ids_c, mask_c = cpu._mono(r, ln, beam=False)
+        ids_g, mask_g = (t.cpu() for t in gpu._mono(r.cuda(), ln.cuda(),
+                                                    beam=False))
+        assert torch.equal(mask_c, mask_g), "masks differ"
+        n_clear, n_valid = _clear_ids(cpu, r, ln, ids_c, ids_g,
+                                      3 * len(batch), "unfused")
+        log(f"{tag} unfused bucket {batch.bucket_len}, {len(batch)} "
+            f"chunk(s): ids equal on {n_clear}/{n_valid} clear valid frames")
+
+    if profile:
+        with tempfile.TemporaryDirectory() as tmp:
+            cfg = PipelineConfig.from_dict({"enable_profiling": True,
+                                            "output_folder": tmp})
+            with maybe_trace(cfg):
+                gpu._mono(r.cuda(), ln.cuda(), beam=False)
+                torch.cuda.synchronize()
+            (trace,) = (Path(tmp) / "profile").glob("trace_*.json")
+            events = json.loads(trace.read_text())["traceEvents"]
+        kernels = sorted({e["name"] for e in events
+                          if e.get("cat") == "kernel"})
+        named = [k for k in kernels if "flash_rel_kernel" in k]
+        log(f"{tag} enable_profiling: {trace.name}, {len(events)} events, "
+            f"{len(kernels)} kernel names, flash-rel kernel: {named[:1]}")
+        assert named, kernels[:20]
+
+
+def message_path(seed: int, work: Path, n_calls: int = 4,
+                 n_8k: int = 1) -> dict:
+    """Phase 8: the message path at full width through DataProcessor;
+    launch counts set to 0 just before the run (every shape warmed
+    before, so the run's own dispatches are what it counts)."""
+    from audio_processor_tpu_torch.config import PipelineConfig
+    from audio_processor_tpu_torch.dsp.fbank import max_num_frames
+    from audio_processor_tpu_torch.host.db import DatabaseManager
+    from audio_processor_tpu_torch.io.decode import load_audio
+    from audio_processor_tpu_torch.models.wav2vec2bert import W2VBertConfig
+    from audio_processor_tpu_torch.pipeline.engine import DataProcessor
+    from audio_processor_tpu_torch.pipeline.segmenter import (
+        SpeechBatchTranscriber,
+    )
+
+    tag = "[message]"
+    log(f"{tag} card: {smi_line()}")
+    ckpt = work / "pyannet.ckpt"
+    work.mkdir(parents=True, exist_ok=True)
+    torch.save({"state_dict": pyannote_state_dict(seed + 8)}, ckpt)
+    audio_s = _write_calls(work / "input", seed + 8, n_calls, 100.0, n_8k)
+    cfg = PipelineConfig.from_dict({
+        "input_folder": str(work / "input"),
+        "output_folder": str(work / "output"),
+        "logs_folder": str(work / "logs"), "temp_dir": str(work / "tmp"),
+        "database_type": "sqlite", "db_path": str(work / "messages.db"),
+        "chunk_batch_size": 16, "enable_mixed_precision": True,
+        "enable_message_path": True, "vad_model_id": str(ckpt)})
+    db = DatabaseManager(cfg)
+    proc = DataProcessor(cfg, db_manager=db, device=DEVICE)
+    try:
+        proc.setup_models()
+        engine = proc.asr_engine
+        mcfg = engine.model_cfg
+        assert mcfg == W2VBertConfig(vocab_size=mcfg.vocab_size)
+        assert engine.attention_impl == "flash_rel"
+        assert engine.dtype == torch.bfloat16
+        proc._transcriber = SpeechBatchTranscriber(cfg, asr_engine=engine)
+        seg = proc._transcriber.segmenter
+        assert seg._vad_params is not None, "PyanNet did not load"
+        assert seg.device.type == "cuda"
+        t0 = time.perf_counter()
+        warmed = engine.warmup(message_rows=True)
+        torch.cuda.synchronize()
+        log(f"{tag} warmup: {warmed} shapes in "
+            f"{time.perf_counter() - t0:.2f} s (outside the counted run)")
+
+        # VAD alone on one 100 s channel (16 kHz), host clock around a
+        # dispatch + fetch (the fetch syncs), after one warm call.
+        wave, sr = load_audio(work / "input" / "call-00.wav")
+        seg.vad_probs(wave[0], sr)
+        vad_ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            seg.vad_probs(wave[0], sr)
+            vad_ms.append((time.perf_counter() - t0) * 1e3)
+
+        # The run: time the VAD and the mono transcription inside it, and
+        # keep the per-channel VAD results.
+        spent = {"vad": 0.0, "asr": 0.0}
+        per_channel = []
+        real_multi = seg.get_speech_segments_multi
+        real_tr = seg.transcribe_segments_batched
+
+        def multi(channels, rate):
+            t = time.perf_counter()
+            out = real_multi(channels, rate)
+            spent["vad"] += time.perf_counter() - t
+            per_channel.extend(out)
+            return out
+
+        def transcribe(segments, rate):
+            t = time.perf_counter()
+            out = real_tr(segments, rate)
+            spent["asr"] += time.perf_counter() - t
+            return out
+
+        seg.get_speech_segments_multi = multi
+        seg.transcribe_segments_batched = transcribe
+        _reset_launches()
+        engine.dispatches = engine.mono_dispatches = 0
+        engine.mono_shapes.clear()
+        t0 = time.perf_counter()
+        succeeded = proc.run()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        counts = _launches()
+        stats = dict(proc.stats)
+        hit = dict(engine.mono_shapes)
+        dispatches = (engine.dispatches, engine.mono_dispatches)
+
+        # mono-ASR ms per dispatch at every (rows, bucket) the program
+        # serves, by CUDA events on zero-padded noise rows.
+        rng = np.random.default_rng(seed)
+        mono_ms = {}
+        for bucket in engine.bucket_samples:
+            for rows_n in (12, 24, 48):
+                r = torch.from_numpy((0.1 * rng.standard_normal(
+                    (rows_n, bucket))).astype(np.float32)).cuda()
+                ln = torch.full((rows_n,), bucket, dtype=torch.int32,
+                                device="cuda")
+                mono_ms[(rows_n, bucket)] = _cuda_ms(
+                    lambda: engine._mono(r, ln, beam=False), 3)
+        messages = {f"call-{i:02d}": db.get_messages_by_id_enregistrement(
+            f"call-{i:02d}") for i in range(n_calls)}
+    finally:
+        proc.close()
+        db.close()
+
+    layers = mcfg.num_hidden_layers
+    launches = counts["flash_rel_attention"]
+    n_seg = sum(len(c) for c in per_channel if c)
+    frames = sorted((rows, -(-max_num_frames(b) // 2 // 256) * 256)
+                    for rows, b in hit)
+    log(f"{tag} files succeeded {succeeded}/{n_calls}, errors "
+        f"{stats['errors']}; VAD channels {len(per_channel)} (failed "
+        f"{sum(c is None for c in per_channel)}), segments {n_seg}, message "
+        f"rows {sum(len(m) for m in messages.values())}")
+    log(f"{tag} dispatches: fused {dispatches[0]}, mono {dispatches[1]} at "
+        f"(rows, bucket samples) {hit}; flash_rel launches {launches} = "
+        f"{layers} x {sum(dispatches)}: "
+        f"{launches == layers * sum(dispatches)}; all counts {counts}")
+    log(f"{tag} VAD (PyanNet, fp32) per 100 s channel: "
+        f"{[round(v, 2) for v in vad_ms]} ms (host clock, fetch included)")
+    for (rows_n, bucket), ms in sorted(mono_ms.items()):
+        log(f"{tag} mono-ASR (w2v-bert-2.0, bf16) rows {rows_n} x bucket "
+            f"{bucket / 16000:.0f} s: {ms:.2f} ms per dispatch"
+            f"{'  (hit by the run ' + str(hit[(rows_n, bucket)]) + 'x)' if (rows_n, bucket) in hit else ''}")
+    log(f"{tag} in the run: VAD {spent['vad']:.3f} s, mono ASR "
+        f"{spent['asr']:.3f} s (VAD share of the two "
+        f"{spent['vad'] / max(spent['vad'] + spent['asr'], 1e-9):.3f}); "
+        f"wall {wall_s:.2f} s for {audio_s:.0f} s of audio: RTFx "
+        f"{audio_s / wall_s:.1f}")
+    assert succeeded == n_calls and stats["files_success"] == n_calls, stats
+    assert stats["errors"] == 0, stats
+    assert len(per_channel) == 2 * n_calls and all(
+        c is not None for c in per_channel), "a VAD channel failed"
+    for stem, rows in messages.items():
+        assert rows, f"{stem}: no message rows"
+        assert [m["order_message"] for m in rows] == list(
+            range(1, len(rows) + 1)), stem
+        assert {m["speaker"] for m in rows} <= {"agent", "client"}, stem
+    assert set(frames) <= set(MESSAGE_SHAPES), frames
+    assert launches > 0 and launches == layers * sum(dispatches), counts
+    assert all(n == 0 for k, n in counts.items()
+               if k != "flash_rel_attention"), counts
+    return {"launches": launches, "vad_ms": vad_ms, "mono_ms": mono_ms,
+            "wall_s": wall_s, "segments": n_seg}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1253,6 +1627,8 @@ def main() -> int:
     parts = parts_vs_plain(args.seed)
     small_reference(args.seed, "auto")
     small_reference(args.seed, "flash")
+    message_reference(args.seed, "auto", profile=True)
+    message_reference(args.seed, "flash", profile=False)
     rel.update(main_path(args.seed, "auto", 8, 3))
     flash.update(main_path(args.seed, "flash", 4, 1))
     assert rel["other"] == 0 and flash["other"] == 0
@@ -1263,6 +1639,7 @@ def main() -> int:
         int8 = int8_phase(args.seed, Path(tmp), prod["models"],
                           prod["engine"])
         del prod
+        message = message_path(args.seed, Path(tmp) / "run8")
     assert int8["launches"] > 0
     assert "jax" not in sys.modules
     assert not any(m.split(".")[0] == "audio_processor_tpu"
@@ -1271,10 +1648,11 @@ def main() -> int:
     src = "audio_processor_tpu_torch/csrc/"
     tool = "tools/profile_kernel_parts.py"
 
-    def row(name, source, replaces, launches, rec):
+    def row(name, source, replaces, launches, rec, by_path=None):
         bound_ms, bound_by = rec["bound"]
         return {"name": name, "route": "cuda", "source": src + source,
                 "replaces": replaces, "launches": launches,
+                **({"launches_by_path": by_path} if by_path else {}),
                 "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
                 "plain_ms": rec["plain_ms"], "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": rec["library_ms"]}
@@ -1292,13 +1670,16 @@ def main() -> int:
         VARIANT_MODES,
     )
 
+    # flash_rel runs on two paths: the batch path (phase 5) and the
+    # message path (phase 8, fused and mono dispatches).
+    rel_paths = {"batch": rel["launches"], "message": message["launches"]}
     kernels = [
         row("flash_rel_attention (onepass)", "flash_rel_attention.cu",
             "audio_processor_tpu/models/flash_rel_attention.py:169",
-            rel["launches"], rel),
+            sum(rel_paths.values()), rel, rel_paths),
         row("flash_rel_attention (stream)", "flash_rel_attention.cu",
             "audio_processor_tpu/models/flash_rel_attention.py:73",
-            rel["launches"], rel),
+            sum(rel_paths.values()), rel, rel_paths),
         row("flash_attention", "flash_attention.cu",
             "audio_processor_tpu/models/wav2vec2bert.py:276",
             flash["launches"], flash),

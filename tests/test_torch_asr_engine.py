@@ -224,10 +224,13 @@ def test_warmup_dispatches_and_counts(engines):
     assert {(64000, 4), (64000, 1), (64000, 2)} <= teng._warmed
 
 
-def test_unported_configuration_raises():
+def test_unported_configuration_raises(engines):
     """int8 now builds an engine whose encoder is W8A8 (the given model
     untouched; tests/test_torch_quant.py holds it against JAX); an
-    unknown quantization mode and the unfused path still raise."""
+    unknown quantization mode still raises. The unfused path
+    (``fuse_acoustic_features: false``) now runs the three views through
+    the mono-rows program: its ids equal the JAX ``_device_fn``'s off
+    near-ties, and its rows carry no acoustic features."""
     cfg = PipelineConfig(chunk_duration_sec=4.0,
                          length_buckets_sec=(2.0, 4.0))
     tiny = tw.build_synthetic(tw.W2VBertConfig(vocab_size=8, **KW),
@@ -246,10 +249,38 @@ def test_unported_configuration_raises():
         ASREngine(PipelineConfig.from_dict({**cfg.to_dict(),
                                             "quantization": "int4"}),
                   device="cpu", model=tiny)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ASREngine(PipelineConfig.from_dict({**cfg.to_dict(),
-                                            "fuse_acoustic_features": False}),
-                  device="cpu", model=tiny)
+    from audio_processor_tpu.dsp.fbank import log_mel_frontend
+    from audio_processor_tpu.pipeline.asr_engine import (
+        ASREngine as JaxEngine, _pad_seq_to_128,
+    )
+
+    jeng, teng = engines
+    unfused = PipelineConfig.from_dict({**teng.config.to_dict(),
+                                        "fuse_acoustic_features": False})
+    ueng = ASREngine(unfused, device="cpu", model=teng.model,
+                     vocab=teng.vocab)
+    jueng = JaxEngine(jconfig.PipelineConfig.from_dict(unfused.to_dict()),
+                      params=jeng.params, model_cfg=jeng.model_cfg,
+                      vocab=jeng.vocab)
+    chunks = split_audio(_int16_exact_call(9.0), 16000, "c.wav", 4.0, 1.0)
+    (batch,) = chunk_batch(chunks, ueng.bucket_samples)
+    rows, lengths = ueng._prepare_rows(batch)
+    assert rows.shape == (ueng.device_batch, batch.bucket_len)
+    ids, mask = (t.numpy() for t in ueng._mono(
+        torch.from_numpy(rows), torch.from_numpy(lengths), beam=False))
+    jids, jmask = (np.asarray(a) for a in jueng._device_fn(
+        batch.bucket_len)(jueng.params, rows, lengths))
+    np.testing.assert_array_equal(mask, jmask)
+    real = slice(0, 3 * len(batch))
+    feats, fmask = _pad_seq_to_128(*log_mel_frontend(rows, lengths))
+    logits = np.asarray(jw.forward(jeng.params, jeng.model_cfg, feats,
+                                   fmask))[real]
+    top2 = np.sort(logits, axis=-1)[..., -2:]
+    clear = (top2[..., 1] - top2[..., 0]) > MARGIN
+    assert clear[jmask[real]].mean() > 0.5
+    np.testing.assert_array_equal(ids[real][clear], jids[real][clear])
+    (row,) = ueng.transcribe_chunks(chunks[:1])
+    assert row["error"] == "" and "agent_acoustic_features" not in row
     flash = PipelineConfig.from_dict({**cfg.to_dict(),
                                       "attention_impl": "flash"})
     assert ASREngine(flash, device="cpu",

@@ -35,7 +35,7 @@ for i, path in enumerate(sys.argv[1:]):
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "audio_processor_tpu"))
-print(json.dumps({"modules": len(names), "bad": bad}))
+print(json.dumps({"modules": names, "bad": bad}))
 """
 
 
@@ -53,7 +53,12 @@ def test_importing_the_port_loads_no_jax_and_no_jax_package():
                        cwd=REPO, capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-4000:]
     out = json.loads(r.stdout.strip().splitlines()[-1])
-    assert out["modules"] > 50          # io/ alone holds some 30 modules
+    assert len(out["modules"]) > 50     # io/ alone holds some 30 modules
+    # The message path's modules and the facade are among them.
+    assert {f"audio_processor_tpu_torch.{m}" for m in (
+        "models.vad", "models.ctc_beam", "host.darija",
+        "pipeline.segmenter", "pipeline.facades", "obs.profiler")} \
+        <= set(out["modules"])
     assert out["bad"] == []
 
 
