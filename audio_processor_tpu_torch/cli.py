@@ -6,10 +6,12 @@ Same flags as the reference CLI, plus ``--device`` (default ``cuda``;
 the CLI refuses to start when CUDA is absent, and ``--device cpu`` must
 be asked for). Wires DB + monitor + processor, runs retention cleanup
 and the batch sweep(s); ``enable_profiling: true`` traces the first
-sweep with torch.profiler (obs/profiler.py). ``--serve`` (HTTP/gRPC
-serving) and multi-process launches are not ported yet: a launch that
+sweep with torch.profiler (obs/profiler.py). ``--serve [--port P]
+[--grpc-port G]`` runs the online server instead (serving.py, and
+grpc_serving.py on G) on the same device, until SIGTERM or Ctrl-C
+drains it. Multi-process launches are not ported yet: a launch that
 names more than one process (``JAX_COORDINATOR_ADDRESS``, ``WORLD_SIZE``)
-is refused before any file is scanned.
+is refused before any file is scanned or any request served.
 """
 
 from __future__ import annotations
@@ -18,7 +20,9 @@ import argparse
 import logging
 import os
 import shutil
+import signal
 import sys
+import threading
 import time
 from datetime import datetime
 from pathlib import Path
@@ -121,11 +125,60 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
+def run_server(args, cfg, db_manager, monitor, device: torch.device
+               ) -> int:
+    """``--serve``: the HTTP server (and the gRPC one with
+    ``--grpc-port``) over one engine on ``device``, until SIGTERM or
+    Ctrl-C; then drain, stop the monitor and close the database."""
+    from audio_processor_tpu_torch.pipeline.sentiment import (
+        SentimentAnalyzer,
+    )
+    from audio_processor_tpu_torch.serving import serve
+
+    analyzer = SentimentAnalyzer(cfg, db_manager=db_manager, device=device)
+    server = serve(cfg, port=args.port, sentiment_analyzer=analyzer,
+                   device=device)
+    logger.info("Online inference server on port %d "
+                "(POST /v1/transcribe, GET /healthz, /v1/stats)",
+                server.server_address[1])
+    grpc_server = None
+    try:
+        if args.grpc_port:
+            from audio_processor_tpu_torch.grpc_serving import (
+                GrpcInferenceServer,
+            )
+
+            grpc_server = GrpcInferenceServer(server.service,
+                                              args.grpc_port)
+            grpc_server.start()
+        # Graceful Docker/K8s shutdown: SIGTERM drains like Ctrl-C.
+        # server.shutdown() must run on another thread — it joins the
+        # serve_forever loop this thread is inside. Only the main
+        # thread may install a signal handler.
+        if threading.current_thread() is threading.main_thread():
+            def _sigterm(_signum, _frame):
+                logger.info("SIGTERM received; shutting down server")
+                threading.Thread(target=server.shutdown,
+                                 daemon=True).start()
+
+            signal.signal(signal.SIGTERM, _sigterm)
+        server.serve_forever()
+    except KeyboardInterrupt:
+        logger.info("Interrupted; shutting down server")
+    finally:
+        if grpc_server is not None:
+            grpc_server.stop()
+        server.service.close()
+        server.server_close()
+        if monitor is not None:
+            monitor.stop_monitoring()
+        if db_manager is not None:
+            db_manager.close()
+    return 0
+
+
 def main(argv=None) -> int:
     args = build_arg_parser().parse_args(argv)
-    if args.serve:
-        raise NotImplementedError(
-            "--serve is not ported yet (ROADMAP.md, Queue 1: serving)")
     device = resolve_device(args.device)
 
     overrides = {"save_csv_results": args.save_mode == "csv"}
@@ -194,6 +247,9 @@ def main(argv=None) -> int:
 
         monitor = PerformanceMonitor(cfg, device=device)
         monitor.start_monitoring()
+
+    if args.serve:
+        return run_server(args, cfg, db_manager, monitor, device)
 
     from audio_processor_tpu_torch.host.topics import TopicClassifier
 

@@ -7,9 +7,9 @@ of a 2-channel call, the mixed view built lazily (``Chunk``,
 ``chunk_boundaries``, ``split_audio``); length buckets and dense
 padded batches (``pick_bucket``, ``ChunkBatch``, ``chunk_batch``).
 ``prepare_and_split`` resamples through the port's numpy
-``resample_np`` (the reference's numerics). The streaming chunker and
-``speaker_views`` serve only the reference's serving path, which is not
-ported yet.
+``resample_np`` (the reference's numerics). ``StreamingChunker`` (the
+incremental ``split_audio`` of the gRPC streaming RPC) and
+``speaker_views`` are copied too.
 """
 
 from __future__ import annotations
@@ -83,6 +83,108 @@ def chunk_boundaries(total_samples: int, chunk_samples: int,
             break
         start += step_samples
     return bounds
+
+
+class StreamingChunker:
+    """Incremental ``split_audio``: feed [C, n] pieces as they arrive
+    (live call audio), get back each Chunk the moment enough samples
+    exist to complete it. Boundaries, indices and speaker views are
+    byte-identical to a one-shot ``split_audio`` over the concatenated
+    signal (property-tested), including the final-short-chunk and
+    exact-end rules of ``chunk_boundaries``. Consumed audio before the
+    next chunk start is discarded, so memory stays bounded by one
+    chunk window regardless of call length."""
+
+    def __init__(self, sample_rate: int, file_name: str = "stream",
+                 chunk_duration_sec: float = 25.0,
+                 overlap_sec: float = 1.0):
+        self.sample_rate = sample_rate
+        self.file_name = file_name
+        self.chunk_samples = int(chunk_duration_sec * sample_rate)
+        self.step_samples = self.chunk_samples - int(
+            overlap_sec * sample_rate)
+        if self.chunk_samples <= 0 or self.step_samples <= 0:
+            raise ValueError("invalid chunk/overlap geometry")
+        self._buf: np.ndarray | None = None   # [C, n] from _offset
+        self._offset = 0                      # absolute pos of _buf[0]
+        self._total = 0
+        self._idx = 0
+        self._last_end = -1                   # end of last emitted chunk
+        self._flushed = False
+
+    def _emit(self, start: int, end: int) -> Chunk:
+        lo, hi = start - self._offset, end - self._offset
+        agent = self._buf[0, lo:hi]
+        client = self._buf[1 if self._buf.shape[0] == 2 else 0, lo:hi]
+        c = Chunk(file_name=self.file_name, chunk_idx=self._idx,
+                  start_time=start / self.sample_rate,
+                  end_time=end / self.sample_rate,
+                  agent=np.ascontiguousarray(agent),
+                  client=np.ascontiguousarray(client))
+        self._idx += 1
+        return c
+
+    def _next_start(self) -> int:
+        return self._idx * self.step_samples
+
+    def _trim(self) -> None:
+        keep_from = self._next_start()
+        if keep_from > self._offset:
+            self._buf = self._buf[:, keep_from - self._offset:]
+            self._offset = keep_from
+
+    def feed(self, piece: np.ndarray) -> List[Chunk]:
+        piece = np.asarray(piece, np.float32)
+        if piece.ndim == 1:
+            piece = piece[None, :]
+        if piece.shape[-1] == 0:
+            return []
+        if self._buf is None:
+            self._buf = piece
+        else:
+            if piece.shape[0] != self._buf.shape[0]:
+                raise ValueError("channel count changed mid-stream")
+            self._buf = np.concatenate([self._buf, piece], axis=1)
+        self._total += piece.shape[-1]
+        out: List[Chunk] = []
+        while self._next_start() + self.chunk_samples <= self._total:
+            start = self._next_start()
+            end = start + self.chunk_samples
+            out.append(self._emit(start, end))
+            self._last_end = end
+            self._trim()
+        return out
+
+    def flush(self) -> List[Chunk]:
+        """End of stream: the trailing short chunk, if any (none when
+        the last full chunk ended exactly at the stream end —
+        chunk_boundaries' break rule)."""
+        if self._flushed or self._total == 0 \
+                or self._last_end == self._total \
+                or self._next_start() >= self._total:
+            self._flushed = True
+            return []
+        out = [self._emit(self._next_start(), self._total)]
+        self._flushed = True
+        return out
+
+
+def speaker_views(waveform: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(mixed, agent, client) views of a [C, T] waveform.
+
+    2-channel: agent = ch0, client = ch1, mixed = mean (reference:
+    audio_processor.py:122-131). Mono: all three alias the input.
+    """
+    waveform = np.asarray(waveform)
+    if waveform.ndim == 1:
+        waveform = waveform[None, :]
+    if waveform.shape[0] == 2:
+        agent = waveform[0]
+        client = waveform[1]
+        mixed = waveform.mean(axis=0)
+    else:
+        agent = client = mixed = waveform[0]
+    return mixed.astype(np.float32), agent.astype(np.float32), client.astype(np.float32)
 
 
 def prepare_and_split(waveform: np.ndarray, sample_rate: int,

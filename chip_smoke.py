@@ -47,6 +47,12 @@ Phases, each of which fails the run (non-zero exit) on any error:
    ``fuse_acoustic_features: false``, ids card vs CPU off near-ties; and
    once (flash_rel) under ``enable_profiling: true`` through
    ``obs.profiler.maybe_trace``: the trace names the flash-rel kernel;
+4d. serving's small reference: one tiny fp32 engine's weights in two
+   ``serving.InferenceService``s, one on the card and one on the CPU; the
+   same 6 WAV bodies (2 to 9 s, one at 8 kHz) to both at once: chunk
+   counts, times and order equal, and each chunk view's transcript equal
+   where the CPU logits have no near tie (else both among the texts the
+   near-tie frames' two top tokens give);
 5. main path: 8 synthetic stereo calls of 100 s (3 at 8 kHz) through
    ``audio_processor_tpu_torch.pipeline.engine.DataProcessor`` at the
    full w2v-bert-2.0 width (random weights from the seed), bf16, CSV
@@ -92,13 +98,30 @@ Phases, each of which fails the run (non-zero exit) on any error:
    ran 24 times per fused and per mono dispatch (the flash kernel never).
    Prints VAD ms per 100 s channel, mono-ASR ms per dispatch at every
    (rows, bucket) (those the run hit marked), the segment count, the
-   VAD and ASR shares, and the phase's RTFx.
+   VAD and ASR shares, and the phase's RTFx;
+9. the online server at full width: ``serving.serve`` on the card over
+   phase 7's HF directory (a cache restore) and both BERT-base text
+   classifiers, chunk_batch_size 16, a 20 ms batch window, warmup on.
+   8 clients post 3 stereo PCM16 calls each back to back (20, 60 and
+   100 s; one client at 8 kHz, one on the OpenAI-compatible route; half
+   the requests with sentiment): every response 200 with its own
+   audio's duration, chunk count and end times, text predictions exactly
+   on transcripts of >= 5 characters, 24 requests and fewer batches in
+   /v1/stats. Then one 20 s request alone 5 times; one 100 s call
+   streamed in 0.5 s pieces (through gRPC where ``grpc`` imports, else
+   through ``StreamingChunker`` and ``submit_chunks`` in the script),
+   with ``split_audio``'s boundaries; a burst of 6 x 60 s against a
+   2-chunk queue cap (503 with Retry-After); ``close()`` with 3 requests
+   in flight (they finish, a new one gets 503); the device probes.
+   Prints warmup s, serving RTFx, p50/p95 latency, requests per batch,
+   the idle latency and device memory %; flash-rel launches = 24 x the
+   fused dispatches after the warmup.
 
 Kernel launch counts are set to 0 just before each of the paths 5, 5b,
-6, 7, 7c and 8 and read just after. The second-to-last line is the kernels' JSON
-record (per kernel: launches, error, ms, plain ms, the bound computed
-from the timed inputs and what sets it, and the library call's ms or
-null); the last line is ``{"ok": true, "device": {...}}``. Imports
+6, 7, 7c and 8, and after phase 9's warmup, and read just after. The
+second-to-last line is the kernels' JSON record (per kernel: launches,
+error, ms, plain ms, the bound computed from the timed inputs and what
+sets it, and the library call's ms or null); the last line is ``{"ok": true, "device": {...}}``. Imports
 nothing of JAX and nothing of the JAX package ``audio_processor_tpu``.
 """
 
@@ -114,6 +137,7 @@ import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -579,6 +603,23 @@ def _write_calls(root: Path, seed: int, n: int, dur: float,
     return n * dur
 
 
+def _fused_features(buf: np.ndarray, lengths: np.ndarray,
+                    bucket_len: int) -> tuple:
+    """The fused program's encoder input on the CPU, from a prepared
+    int16 buffer [N, 2, bucket+2*PAD]: (feats, mask) of the mixed, agent
+    and client rows of each chunk, in that order."""
+    from audio_processor_tpu_torch.dsp.acoustic_features import PAD
+    from audio_processor_tpu_torch.dsp.fbank import log_mel_frontend
+    from audio_processor_tpu_torch.pipeline.asr_engine import pad_seq
+
+    x = torch.from_numpy(buf).float() / 32768.0
+    a = x[:, 0, PAD:PAD + bucket_len]
+    c = x[:, 1, PAD:PAD + bucket_len]
+    rows = torch.stack([(a + c) * 0.5, a, c], 1).reshape(-1, bucket_len)
+    return pad_seq(*log_mel_frontend(
+        rows, torch.from_numpy(lengths).repeat_interleave(3)))
+
+
 def small_reference(seed: int, impl: str, quantization: str = "none"
                     ) -> None:
     """A tiny model through the engine's fused program on the card
@@ -635,17 +676,7 @@ def small_reference(seed: int, impl: str, quantization: str = "none"
             gpu._upload(buf), gpu._upload(lengths), batch.bucket_len))
         assert torch.equal(mask_c, mask_g), "masks differ"
         # Logits of the CPU run decide which frames are near ties.
-        from audio_processor_tpu_torch.dsp.acoustic_features import PAD
-        from audio_processor_tpu_torch.dsp.fbank import log_mel_frontend
-        from audio_processor_tpu_torch.pipeline.asr_engine import pad_seq
-
-        x = torch.from_numpy(buf).float() / 32768.0
-        a = x[:, 0, PAD:PAD + batch.bucket_len]
-        c = x[:, 1, PAD:PAD + batch.bucket_len]
-        rows = torch.stack([(a + c) * 0.5, a, c], 1).reshape(
-            -1, batch.bucket_len)
-        feats, mask = pad_seq(*log_mel_frontend(
-            rows, torch.from_numpy(lengths).repeat_interleave(3)))
+        feats, mask = _fused_features(buf, lengths, batch.bucket_len)
         with torch.inference_mode():
             logits = cpu.model(feats, mask, attention_impl=cpu.attention_impl)
             logits_g = gpu.model(feats.cuda(), mask.cuda(),
@@ -781,11 +812,7 @@ def main_path(seed: int, impl: str, n_calls: int, n_8k: int) -> dict:
 def ablation_path(seed: int) -> dict:
     """Phase 6: the ablation tool's entry point over all its variants at
     B=48, H=16, L=1280; launch counts set to 0 just before it."""
-    spec = importlib.util.spec_from_file_location(
-        "profile_kernel_parts_torch",
-        REPO / "tools" / "profile_kernel_parts_torch.py")
-    tool = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(tool)
+    tool = _load_tool("profile_kernel_parts_torch")
     _reset_launches()
     ms = tool.run(ABLATION_VARIANTS, seed=seed)
     torch.cuda.synchronize()
@@ -1615,6 +1642,413 @@ def message_path(seed: int, work: Path, n_calls: int = 4,
             "wall_s": wall_s, "segments": n_seg}
 
 
+# ---------------------------------------------------------- phases 4d, 9
+def _load_tool(name: str):
+    """A script of ``tools/`` as a module (its ``main`` does not run)."""
+    spec = importlib.util.spec_from_file_location(
+        name, REPO / "tools" / f"{name}.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    return tool
+
+
+def _near_tie_texts(engine, logits, mask, most: int = 10):
+    """Every text the engine's decode gives one row of logits [L', V]
+    when each valid frame whose top-2 margin is at most MARGIN takes
+    either of its two top tokens (one text when there is none); None
+    past ``most`` such frames."""
+    import itertools
+
+    from audio_processor_tpu_torch.models.tokenizer import batch_decode
+    from audio_processor_tpu_torch.utils.text import remove_special_characters
+
+    top = logits.topk(2, dim=-1)
+    near = torch.nonzero(mask & ((top.values[:, 0] - top.values[:, 1])
+                                 <= MARGIN)).flatten().tolist()
+    if len(near) > most:
+        return None
+    pad = engine.model_cfg.pad_token_id
+    texts = set()
+    for pick in itertools.product((0, 1), repeat=len(near)):
+        ids = top.indices[:, 0].clone()
+        for f, k in zip(near, pick):
+            ids[f] = top.indices[f, k]
+        ids = torch.where(mask, ids, torch.full_like(ids, pad))
+        texts.add(remove_special_characters(batch_decode(
+            ids[None].numpy(), engine.vocab, mask[None].numpy())[0]))
+    return texts
+
+
+def serving_reference(seed: int) -> None:
+    """Phase 4d: one tiny fp32 engine's weights in two InferenceServices,
+    one on the card and one on the CPU; the same 6 WAV bodies (2 to 9 s,
+    one at 8 kHz) go to both services at once. Each response's chunks
+    (count, index, times, order) must be equal on both; each chunk view's
+    transcript must be equal where the CPU engine's top-2 margin exceeds
+    MARGIN on every valid frame, and elsewhere both transcripts must be
+    among those the near-tie frames' two top tokens can give."""
+    from audio_processor_tpu_torch.config import PipelineConfig
+    from audio_processor_tpu_torch.io.decode import load_audio_bytes
+    from audio_processor_tpu_torch.models import wav2vec2bert as w2v
+    from audio_processor_tpu_torch.models.tokenizer import CTCVocab
+    from audio_processor_tpu_torch.pipeline.asr_engine import ASREngine
+    from audio_processor_tpu_torch.pipeline.chunker import (
+        chunk_batch, prepare_and_split,
+    )
+    from audio_processor_tpu_torch.serving import InferenceService
+
+    lt = _load_tool("load_test_serving_torch")
+    tag = "[serve reference]"
+    cfg = PipelineConfig.from_dict({
+        "enable_mixed_precision": False, "chunk_duration_sec": 4.0,
+        "overlap_sec": 1.0, "length_buckets_sec": [2.0, 4.0],
+        "chunk_batch_size": 4, "serve_batch_window_ms": 30.0})
+    vocab = CTCVocab.darija_default()
+    mcfg = w2v.W2VBertConfig(vocab_size=len(vocab), hidden_size=128,
+                             num_hidden_layers=2, num_attention_heads=2,
+                             intermediate_size=256)
+    services = {d: InferenceService(cfg, asr_engine=ASREngine(
+        cfg, device=d, model=w2v.build_synthetic(mcfg, torch.device("cpu"),
+                                                 seed=seed), vocab=vocab))
+        for d in ("cpu", DEVICE)}
+    durs = (2.0, 3.5, 5.0, 6.5, 8.0, 9.0)
+    bodies = [lt.wav_bytes(lt.call_pcm(d, seed + 40 + k, 8000 if k == 2
+                                       else 16000), 8000 if k == 2 else 16000)
+              for k, d in enumerate(durs)]
+    outs = {d: [None] * len(bodies) for d in services}
+
+    def one(dev, k):
+        outs[dev][k] = services[dev].transcribe_bytes(bodies[k])
+
+    threads = [threading.Thread(target=one, args=(d, k))
+               for d in services for k in range(len(bodies))]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        assert not any(t.is_alive() for t in threads), "a request hung"
+        cpu = services["cpu"].engine
+        views = clear = explained = unchecked = differ = 0
+        for k, body in enumerate(bodies):
+            card, ref = outs[DEVICE][k], outs["cpu"][k]
+            assert card["num_chunks"] == ref["num_chunks"] >= 1
+            assert [(c["chunk_idx"], c["start_time"], c["end_time"])
+                    for c in card["chunks"]] == [
+                (c["chunk_idx"], c["start_time"], c["end_time"])
+                for c in ref["chunks"]], k
+            assert abs(card["duration_seconds"] - durs[k]) < 1e-3
+            wave, sr = load_audio_bytes(body)
+            _, _, chunks = prepare_and_split(wave, sr, "request.wav", cfg)
+            for batch in chunk_batch(chunks, cpu.bucket_samples):
+                buf, lengths = cpu._prepare_fused_buffer(
+                    batch, cpu._tail_size(len(batch)))
+                feats, mask = _fused_features(buf, lengths, batch.bucket_len)
+                with torch.inference_mode():
+                    logits = cpu.model(feats, mask,
+                                       attention_impl=cpu.attention_impl)
+                for j, c in enumerate(batch.chunks):
+                    for v, key in enumerate(("transcription_chunk",
+                                             "agent_transcription",
+                                             "client_transcription")):
+                        a = card["chunks"][c.chunk_idx][key]
+                        b = ref["chunks"][c.chunk_idx][key]
+                        texts = _near_tie_texts(cpu, logits[3 * j + v],
+                                                mask[3 * j + v])
+                        views += 1
+                        differ += a != b
+                        if texts is None:
+                            unchecked += 1
+                        elif len(texts) == 1:
+                            clear += 1
+                            assert a == b == next(iter(texts)), (k, j, key)
+                        else:
+                            explained += 1
+                            assert a in texts and b in texts, (k, j, key)
+    finally:
+        for svc in services.values():
+            svc.close(drain_timeout=30)
+    n_chunks = sum(o["num_chunks"] for o in outs[DEVICE])
+    log(f"{tag} 6 bodies ({', '.join(f'{d:g}' for d in durs)} s; the "
+        f"5 s one at 8 kHz) to the card's and the CPU's service at once: "
+        f"{n_chunks} chunks, times and order equal; of {views} chunk "
+        f"views, {clear} with no near-tie frame (transcripts equal), "
+        f"{explained} with near ties (both transcripts among their top-2 "
+        f"choices), {unchecked} with more than 10 near ties; transcripts "
+        f"differ on {differ}")
+    assert unchecked <= views // 10, (unchecked, views)
+    assert all(svc.stats["batches"] < len(bodies)
+               for svc in services.values()), "no micro-batching"
+
+
+def _response_checks(out: dict, audio_s: float, openai: bool,
+                     sentiment: bool) -> None:
+    """One phase-9 response against its own audio: duration, chunk count
+    and end times of a split of ``audio_s`` seconds (so no rows crossed
+    between requests), and the text sentiment rule where it was asked."""
+    from audio_processor_tpu_torch.pipeline.chunker import chunk_boundaries
+
+    ends = [e / 16000 for _, e in chunk_boundaries(int(audio_s * 16000),
+                                                   25 * 16000, 24 * 16000)]
+    if openai:
+        assert abs(out["duration"] - audio_s) < 1e-3, out["duration"]
+        assert [s["end"] for s in out["segments"]] == ends, out["segments"]
+        assert out["text"] == " ".join(s["text"]
+                                       for s in out["segments"]).strip()
+        return
+    assert abs(out["duration_seconds"] - audio_s) < 1e-3
+    assert out["num_chunks"] == len(ends)
+    assert [c["end_time"] for c in out["chunks"]] == ends
+    assert [c["chunk_idx"] for c in out["chunks"]] == list(range(len(ends)))
+    for c in out["chunks"]:
+        assert c["error"] == "", c["error"]
+        for speaker, labels in (("agent", AGENT_LABELS),
+                                ("client", CLIENT_LABELS)):
+            if not sentiment:
+                assert f"{speaker}_text_sentiment" not in c
+                continue
+            pred = c[f"{speaker}_text_sentiment"]
+            text = c[f"{speaker}_transcription"]
+            assert (pred != "") == (len(text.strip()) >= 5), (text, pred)
+            assert pred == "" or pred in labels, pred
+
+
+def serving_path(seed: int, models: Path, asr: dict = W2V_BERT_2,
+                 bert: dict = BERT_BASE, clients: int = 8,
+                 durs: tuple = (20.0, 60.0, 100.0)) -> dict:
+    """Phase 9: the HTTP server at full width, from phase 7's HF
+    directory (a cache restore) and both text classifiers; launch counts
+    set to 0 after the warmup and read after the drain."""
+    from audio_processor_tpu_torch.config import PipelineConfig
+    from audio_processor_tpu_torch.pipeline.chunker import (
+        StreamingChunker, chunk_boundaries,
+    )
+    from audio_processor_tpu_torch.pipeline.sentiment import (
+        SentimentAnalyzer,
+    )
+    from audio_processor_tpu_torch.serving import serve
+    from audio_processor_tpu_torch.utils.system import (
+        check_device_availability, get_device_memory_usage,
+    )
+
+    lt = _load_tool("load_test_serving_torch")
+    tag = "[serve]"
+    log(f"{tag} card: {smi_line()}")
+    cfg = PipelineConfig.from_dict({
+        "transcription_model": str(models / "asr"),
+        "client_text_model_path": str(models / "client_text"),
+        "agent_text_model_path": str(models / "agent_text"),
+        "chunk_batch_size": 16, "enable_mixed_precision": True,
+        "serve_batch_window_ms": 20, "serve_warmup": True})
+    t0 = time.perf_counter()
+    with _no_reconversion():
+        server = serve(cfg, host="127.0.0.1", port=0,
+                       sentiment_analyzer=SentimentAnalyzer(cfg,
+                                                            device=DEVICE))
+    setup_s = time.perf_counter() - t0
+    svc = server.service
+    engine, text = svc.engine, svc.sentiment.text_analyzer
+    mcfg = engine.model_cfg
+    assert (mcfg.hidden_size, mcfg.num_hidden_layers,
+            mcfg.num_attention_heads, mcfg.intermediate_size) == (
+        asr["hidden"], asr["layers"], asr["heads"], asr["ffn"]), mcfg
+    assert engine.device.type == torch.device(DEVICE).type
+    assert engine.dtype == torch.bfloat16 and text.models_available
+    assert text.models["client"]["cfg"].num_hidden_layers == bert["layers"]
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    port = server.server_address[1]
+    log(f"{tag} serve(): {setup_s:.2f} s (checkpoint restore, both text "
+        f"classifiers, warmup {svc.warmup_seconds:.2f} s); attention "
+        f"{engine.attention_impl}, batch window {svc.batch_window_ms:g} ms")
+    try:
+        _reset_launches()
+        engine.dispatches = 0
+        res = {"setup_s": setup_s, "warmup_s": svc.warmup_seconds}
+
+        # Concurrent load: each client posts its calls back to back.
+        jobs = {}
+        for i in range(clients):
+            sr = 8000 if i == clients - 1 else 16000
+            for j, d in enumerate(durs):
+                jobs[(i, j)] = {
+                    "audio_s": d, "body": lt.wav_bytes(
+                        lt.call_pcm(d, seed + 100 + 3 * i + j, sr), sr),
+                    "sentiment": (i + j) % 2 == 1, "openai": i == 0}
+
+        def client(i):
+            for j in range(len(durs)):
+                job = jobs[(i, j)]
+                query = "?sentiment=1" if job["sentiment"] else ""
+                if job["openai"]:
+                    body, headers = lt.multipart({
+                        "file": ("call.wav", job["body"]),
+                        "response_format": (None, b"verbose_json")})
+                    path = "/v1/audio/transcriptions" + query
+                else:
+                    body, headers, path = (job["body"], {},
+                                           "/v1/transcribe" + query)
+                job["status"], _, raw = lt.request(port, path, body, headers)
+                job["out"] = json.loads(raw)
+
+        before = lt.get_json(port, "/v1/stats")
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(clients)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        load_s = time.perf_counter() - t0
+        assert not any(t.is_alive() for t in threads), "a client hung"
+        stats = lt.get_json(port, "/v1/stats")
+        for key, job in jobs.items():
+            assert job["status"] == 200, (key, job["status"], job["out"])
+            _response_checks(job["out"], job["audio_s"], job["openai"],
+                             job["sentiment"])
+        n_req = stats["requests"] - before["requests"]
+        batches = stats["batches"] - before["batches"]
+        audio_s = sum(job["audio_s"] for job in jobs.values())
+        n_sent = sum(job["sentiment"] for job in jobs.values())
+        log(f"{tag} load: {clients} clients x {len(durs)} stereo PCM16 "
+            f"calls ({', '.join(f'{d:g}' for d in durs)} s; one client at "
+            f"8 kHz, one on /v1/audio/transcriptions verbose_json), "
+            f"{n_sent} with sentiment: {n_req} requests, "
+            f"{stats['chunks'] - before['chunks']} chunks, {audio_s:.0f} s "
+            f"of audio in {load_s:.2f} s: serving RTFx "
+            f"{audio_s / load_s:.1f}; all 200, durations, chunk counts and "
+            f"end times each its own audio's; text predictions exactly on "
+            f"transcripts of >= 5 characters")
+        log(f"{tag} /v1/stats: p50 {stats['p50_latency_seconds']} s, p95 "
+            f"{stats['p95_latency_seconds']} s, {batches} device batches "
+            f"for {n_req} requests ({n_req / max(batches, 1):.2f} requests "
+            f"per batch), batch errors {stats['batch_errors']}")
+        assert n_req == len(jobs) and stats["batch_errors"] == 0, stats
+        assert 0 < batches < n_req, (batches, n_req)
+        res.update({"rtfx": audio_s / load_s, "load_s": load_s,
+                    "p50": stats["p50_latency_seconds"],
+                    "p95": stats["p95_latency_seconds"],
+                    "requests_per_batch": n_req / batches})
+
+        # Idle latency: one 20 s request alone, five times.
+        idle_body = jobs[(1, 0)]["body"]
+        idle = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            status, _, _ = lt.request(port, "/v1/transcribe", idle_body)
+            idle.append(time.perf_counter() - t0)
+            assert status == 200
+        res["idle_s"] = float(np.median(idle))
+        log(f"{tag} idle latency of one {durs[0]:g} s request (client clock, "
+            f"5 alone): {[round(x, 4) for x in idle]} s, median "
+            f"{res['idle_s']:.4f} s")
+
+        # Streaming: one 100 s call as 0.5 s int16 pieces.
+        pcm = lt.call_pcm(durs[-1], seed + 200)
+        pieces = [pcm[:, k:k + 8000] for k in range(0, pcm.shape[1], 8000)]
+        try:
+            import google.protobuf  # noqa: F401
+            import grpc  # noqa: F401
+            route = "grpc"
+        except ImportError:
+            route = "in-process"
+        t0 = time.perf_counter()
+        if route == "grpc":
+            from audio_processor_tpu_torch.grpc_serving import (
+                GrpcClient, GrpcInferenceServer,
+            )
+
+            gsrv = GrpcInferenceServer(svc, 0)
+            gsrv.start()
+            gclient = GrpcClient(f"127.0.0.1:{gsrv.bound_port}")
+            try:
+                streamed = [(c.start_time, c.end_time, c.transcription_chunk,
+                             c.agent_transcription, c.client_transcription)
+                            for c in gclient.streaming_transcribe(
+                                pieces, channels=2, timeout=600.0)]
+            finally:
+                gclient.close()
+                gsrv.stop()
+        else:
+            chunker = StreamingChunker(16000, "stream", 25.0, 1.0)
+            streamed = []
+            for piece in pieces + [None]:
+                done = (chunker.flush() if piece is None else chunker.feed(
+                    piece.astype(np.float32) / 32768.0))
+                for chunk in done:
+                    (row,) = svc.submit_chunks([chunk])
+                    streamed.append((row["start_time"], row["end_time"],
+                                     row["transcription_chunk"],
+                                     row["agent_transcription"],
+                                     row["client_transcription"]))
+        stream_s = time.perf_counter() - t0
+        status, _, raw = lt.request(port, "/v1/transcribe", lt.wav_bytes(pcm))
+        assert status == 200
+        unary = [(c["start_time"], c["end_time"], c["transcription_chunk"],
+                  c["agent_transcription"], c["client_transcription"])
+                 for c in json.loads(raw)["chunks"]]
+        bounds = [(s / 16000, e / 16000) for s, e in chunk_boundaries(
+            pcm.shape[1], 25 * 16000, 24 * 16000)]
+        assert [r[:2] for r in streamed] == [r[:2] for r in unary] == bounds
+        n_diff = sum(a[k] != b[k] for a, b in zip(streamed, unary)
+                     for k in (2, 3, 4))
+        log(f"{tag} streaming route: {route}")
+        log(f"{tag} streaming: {durs[-1]:g} s call in {len(pieces)} pieces of "
+            f"0.5 s -> {len(streamed)} chunks in {stream_s:.2f} s, boundaries "
+            f"equal to split_audio's; transcripts differing from the unary "
+            f"request's: {n_diff} of {3 * len(streamed)}")
+        res.update({"stream_route": route, "stream_diff": n_diff})
+
+        # Backpressure, then the drain.
+        svc.max_pending_chunks = 2
+        results = lt.burst(port, [jobs[(i, 1)]["body"]
+                                  for i in range(1, 7)])
+        svc.max_pending_chunks = 32 * svc.max_chunks
+        n503, n200 = lt.check_burst(results)
+        log(f"{tag} backpressure: 6 x {durs[1]:g} s at once against a "
+            f"2-chunk cap: {n503} x 503 with Retry-After 5, {n200} x 200 "
+            f"(a {durs[1]:g} s body is "
+            f"{len(chunk_boundaries(int(durs[1] * 16000), 400000, 384000))}"
+            f" chunks, over the cap alone)")
+        in_flight = [jobs[(i, 2)]["body"] for i in range(1, 4)]
+        n_chunks = 3 * len(chunk_boundaries(int(durs[2] * 16000), 400000,
+                                            384000))
+        drained = lt.drain(server, port, in_flight, n_chunks, idle_body)
+        log(f"{tag} drain: close() with {drained['pending_at_close']} chunks "
+            f"of 3 requests in flight: they finished "
+            f"{drained['in_flight']}; a request during the close got "
+            f"{drained['during_close']} ({drained['during_close_error']}); "
+            f"close took {drained['close_s']:.2f} s")
+        torch.cuda.synchronize()
+        counts = _launches()
+        dispatches = engine.dispatches
+
+        ok, msg = check_device_availability()
+        mem = get_device_memory_usage()
+        log(f"{tag} probes: check_device_availability() = ({ok}, {msg!r}); "
+            f"get_device_memory_usage() = {mem}")
+        assert ok and isinstance(mem, float), (ok, mem)
+        res["memory_pct"] = mem
+    finally:
+        server.shutdown()
+        svc.close(drain_timeout=30)
+        server.server_close()
+    layers = mcfg.num_hidden_layers
+    launches = counts["flash_rel_attention"]
+    log(f"{tag} fused dispatches {dispatches} (warmup excluded); flash_rel "
+        f"launches {launches} = {layers} x {dispatches}: "
+        f"{launches == layers * dispatches}; all counts {counts}")
+    log(f"{tag} summary: warmup {res['warmup_s']:.2f} s, serving RTFx "
+        f"{res['rtfx']:.1f}, p50 {res['p50']} s, p95 {res['p95']} s, "
+        f"{res['requests_per_batch']:.2f} requests per batch, idle "
+        f"{durs[0]:g} s latency {res['idle_s']:.4f} s, device memory "
+        f"{mem:.2f}%")
+    assert launches > 0 and launches == layers * dispatches, counts
+    assert all(n == 0 for k, n in counts.items()
+               if k != "flash_rel_attention"), counts
+    res["launches"] = launches
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1629,6 +2063,7 @@ def main() -> int:
     small_reference(args.seed, "flash")
     message_reference(args.seed, "auto", profile=True)
     message_reference(args.seed, "flash", profile=False)
+    serving_reference(args.seed)
     rel.update(main_path(args.seed, "auto", 8, 3))
     flash.update(main_path(args.seed, "flash", 4, 1))
     assert rel["other"] == 0 and flash["other"] == 0
@@ -1638,8 +2073,10 @@ def main() -> int:
         text_card_vs_cpu(prod["models"], prod["rows"])
         int8 = int8_phase(args.seed, Path(tmp), prod["models"],
                           prod["engine"])
+        models = prod["models"]
         del prod
         message = message_path(args.seed, Path(tmp) / "run8")
+        served = serving_path(args.seed, models)
     assert int8["launches"] > 0
     assert "jax" not in sys.modules
     assert not any(m.split(".")[0] == "audio_processor_tpu"
@@ -1670,9 +2107,11 @@ def main() -> int:
         VARIANT_MODES,
     )
 
-    # flash_rel runs on two paths: the batch path (phase 5) and the
-    # message path (phase 8, fused and mono dispatches).
-    rel_paths = {"batch": rel["launches"], "message": message["launches"]}
+    # flash_rel runs on three paths: the batch path (phase 5), the
+    # message path (phase 8, fused and mono dispatches) and the server
+    # (phase 9).
+    rel_paths = {"batch": rel["launches"], "message": message["launches"],
+                 "serve": served["launches"]}
     kernels = [
         row("flash_rel_attention (onepass)", "flash_rel_attention.cu",
             "audio_processor_tpu/models/flash_rel_attention.py:169",

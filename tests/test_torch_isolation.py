@@ -54,10 +54,12 @@ def test_importing_the_port_loads_no_jax_and_no_jax_package():
     assert r.returncode == 0, r.stderr[-4000:]
     out = json.loads(r.stdout.strip().splitlines()[-1])
     assert len(out["modules"]) > 50     # io/ alone holds some 30 modules
-    # The message path's modules and the facade are among them.
+    # The message path's modules, the facade and the serving modules are
+    # among them.
     assert {f"audio_processor_tpu_torch.{m}" for m in (
         "models.vad", "models.ctc_beam", "host.darija",
-        "pipeline.segmenter", "pipeline.facades", "obs.profiler")} \
+        "pipeline.segmenter", "pipeline.facades", "obs.profiler",
+        "serving", "grpc_serving", "protos.serving_pb2", "utils.system")} \
         <= set(out["modules"])
     assert out["bad"] == []
 
@@ -134,3 +136,24 @@ def test_native_library_lives_in_the_port():
     assert native._LIB_PATH == lib
     assert lib.parent == PORT / "io" / "_native"
     assert lib.name.startswith("libaudioio-") and lib.suffix == ".so"
+
+
+def test_serving_modules_import_without_grpc_or_protobuf():
+    """The card machine may have neither ``grpc`` nor ``protobuf``: the
+    serving modules import and build an HTTP service without them, and
+    only building a gRPC server reaches for them."""
+    code = r"""
+import sys
+for name in ("grpc", "google.protobuf"):
+    sys.modules[name] = None          # makes any import of them fail
+from audio_processor_tpu_torch import grpc_serving, serving
+from audio_processor_tpu_torch.cli import main
+try:
+    grpc_serving.GrpcInferenceServer(None, 0)
+except ImportError:
+    print("refused")
+"""
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-4000:]
+    assert r.stdout.strip() == "refused"

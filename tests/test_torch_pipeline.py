@@ -99,11 +99,11 @@ def test_port_pipeline_runs_without_jax(tmp_path):
 
 
 def test_cli_refuses_serve_and_missing_cuda(tmp_path):
-    """``--serve`` is not ported; the default ``--device cuda`` refuses
-    to start without CUDA instead of running on the CPU."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(["--serve"])
+    """The default ``--device cuda`` refuses to start without CUDA, for
+    the batch sweep and for ``--serve`` alike, instead of running on the
+    CPU (tests/test_torch_system.py serves with ``--device cpu``)."""
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="--device cpu"):
-            cli.main(["--config", str(tmp_path / "absent.yaml")])
+        for argv in (["--serve"], ["--config", str(tmp_path / "absent.yaml")]):
+            with pytest.raises(RuntimeError, match="--device cpu"):
+                cli.main(argv)
     assert cli.resolve_device("cpu").type == "cpu"
