@@ -33,6 +33,22 @@ def _entry(name: str, signature: str):
     return fwd, error
 
 
+def refuse_autograd(name: str, *tensors) -> None:
+    """Raise RuntimeError when autograd is recording and any of
+    ``tensors`` (None allowed) requires grad. The kernels of ``csrc/``
+    write into fresh outputs through their C interface, so an output
+    would have no ``grad_fn`` and the operands would silently get no
+    gradient. Wrappers call this before choosing between the kernel and
+    the plain version, so the CPU behaves as the card does."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} has no backward: an operand requires grad while "
+            "autograd is recording. Training runs attention_impl=\"xla\", "
+            "as the JAX train step does; run inference under "
+            "torch.inference_mode() or torch.no_grad().")
+
+
 def check_operands(q: torch.Tensor, named) -> None:
     """Raise ValueError unless every (name, tensor) of ``named`` lies on
     q's device, is contiguous and starts 16-byte aligned (the kernels

@@ -106,8 +106,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     [B, H, L, L] float32 or bfloat16; L a multiple of 64.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (or raise); any other device raises.
+    (or raise); any other device raises. The kernel has no backward, so
+    operands that require grad raise while autograd records, on every
+    device.
     """
+    _cuda_call.refuse_autograd("flash_attention", q, k, v, ab)
     _check(q, k, v, ab)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, ab, sm_scale)

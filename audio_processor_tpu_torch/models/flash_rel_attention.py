@@ -127,8 +127,11 @@ def flash_rel_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     one CUDA kernel computes it for all three.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (or raise); any other device raises.
+    (or raise); any other device raises. The kernel has no backward, so
+    operands that require grad raise while autograd records, on every
+    device.
     """
+    _cuda_call.refuse_autograd("flash_rel_attention", q, k, v, E, kv_mask)
     _check(q, k, v, E, kv_mask, left, num_buckets, variant)
     if q.device.type == "cpu":
         return flash_rel_attention_plain(q, k, v, E, kv_mask, sm_scale,

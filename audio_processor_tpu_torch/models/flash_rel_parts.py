@@ -31,7 +31,9 @@ which its ``full``, ``noselect`` and ``kb640`` kernels no longer trace.
 
 CPU tensors take the plain twins (:func:`plain`: the same step
 recurrence in fp32 PyTorch, chunked over batch); CUDA tensors launch
-``csrc/flash_rel_parts.cu`` or raise. That kernel has the design of the
+``csrc/flash_rel_parts.cu`` or raise; on either device, operands that
+require grad raise while autograd records (the kernels have no
+backward). That kernel has the design of the
 main path's bf16 flash_rel kernel (tensor cores, ``csrc/attention_tc.cuh``:
 wgmma for both products, p in registers, a cp.async ring), with each
 mode's step of 256 or 640 columns, so the differences between configs
@@ -180,6 +182,8 @@ def _launch(name: str, counter, q, k, v, s_rel, kv_mask,
 def _run(name: str, q, k, v, s_rel, kv_mask, sm_scale: float, left: int,
          num_buckets: int, counter) -> torch.Tensor:
     mode = MODES[name]
+    _cuda_call.refuse_autograd(f"flash_rel_parts {name}", q, k, v, s_rel,
+                               kv_mask)
     _check(q, k, v, s_rel, kv_mask, mode, left, num_buckets)
     if q.device.type == "cpu":
         return _plain(q, k, v, s_rel, kv_mask, mode, sm_scale, left,

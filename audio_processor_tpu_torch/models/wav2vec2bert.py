@@ -40,6 +40,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from audio_processor_tpu_torch.models.flash_attention import flash_attention
 from audio_processor_tpu_torch.models.flash_rel_attention import (
@@ -285,7 +286,12 @@ class Wav2Vec2Bert(nn.Module):
     def forward(self, input_features: torch.Tensor,
                 attention_mask: Optional[torch.Tensor] = None,
                 dtype: torch.dtype = torch.float32,
-                attention_impl: str = "auto") -> torch.Tensor:
+                attention_impl: str = "auto",
+                remat: bool = False) -> torch.Tensor:
+        """``remat`` recomputes each conformer layer in the backward pass
+        instead of keeping its activations (the JAX package's
+        ``jax.checkpoint`` per layer): the same logits and gradients, one
+        layer's activations alive at a time."""
         impl = resolve_attention_impl(attention_impl, input_features.device)
         B, L, _ = input_features.shape
         if attention_mask is None:
@@ -299,7 +305,11 @@ class Wav2Vec2Bert(nn.Module):
         x = x * pad_mask[..., None].to(dtype)
         attn_bias = ((1.0 - pad_mask) * -1e9)[:, None, None, :]
         for layer in self.layers:
-            x = layer(x, attn_bias, pad_mask, impl)
+            if remat:
+                x = torch.utils.checkpoint.checkpoint(
+                    layer, x, attn_bias, pad_mask, impl, use_reentrant=False)
+            else:
+                x = layer(x, attn_bias, pad_mask, impl)
         return dense(self.lm_head, x.float())
 
 

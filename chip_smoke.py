@@ -53,6 +53,15 @@ Phases, each of which fails the run (non-zero exit) on any error:
    counts, times and order equal, and each chunk view's transcript equal
    where the CPU logits have no near tie (else both among the texts the
    near-tie frames' two top tokens give);
+4e. fine-tuning's small reference: a tiny model (hidden 128, 2 heads of
+   64, 2 layers, conv 7) with the same weights on the card and on the
+   CPU, fp32 (TF32 off), no SpecAugment, 4 rows of 2 s with ragged
+   masks and one row whose labels cannot fit its frames: 3 AdamW steps
+   of ``training.train_step`` on each, losses within 1e-5, step-0
+   gradients (all finite) within 1e-4 of each leaf's max, params and
+   Adam moments after 3 steps within the CPU test's tolerances; one bf16
+   step on the card, its loss and each row's within 2e-2 of fp32's; and
+   ``flash_rel_attention`` refusing an operand that requires grad;
 5. main path: 8 synthetic stereo calls of 100 s (3 at 8 kHz) through
    ``audio_processor_tpu_torch.pipeline.engine.DataProcessor`` at the
    full w2v-bert-2.0 width (random weights from the seed), bf16, CSV
@@ -115,10 +124,25 @@ Phases, each of which fails the run (non-zero exit) on any error:
    in flight (they finish, a new one gets 503); the device probes.
    Prints warmup s, serving RTFx, p50/p95 latency, requests per batch,
    the idle latency and device memory %; flash-rel launches = 24 x the
-   fused dispatches after the warmup.
+   fused dispatches after the warmup;
+10. fine-tuning at full width: ``training.finetune.finetune`` from phase
+   7's HF directory (a ``torch_converted/`` restore) on 16 synthetic
+   utterances of 5-25 s (one at 8 kHz) with Darija-vocabulary
+   transcripts and 8 eval ones, FinetuneConfig's batch (8) and length
+   (25 s), SpecAugment on, bf16: 6 steps with a checkpoint and an eval
+   every 3; a resume that runs no step (params, moments and step
+   bitwise; save and restore timed); a resume to 8 steps that runs steps
+   6 and 7 alone. It fails unless every loss is finite, every step-0
+   gradient is finite and the q, k, v and distance-embedding gradients
+   are non-zero in every layer, ``step_6/metadata.json`` holds the eval's
+   WER, CER and loss, and neither attention kernel was launched. Prints
+   the median step wall over steps 1-5 split into batch prep,
+   forward+backward and optimizer, training RTFx, valid and padded
+   frames per second, the model-FLOP share of bf16 peak, peak memory as
+   a share of the card, and the state's save and restore seconds.
 
 Kernel launch counts are set to 0 just before each of the paths 5, 5b,
-6, 7, 7c and 8, and after phase 9's warmup, and read just after. The
+6, 7, 7c, 8 and 10, and after phase 9's warmup, and read just after. The
 second-to-last line is the kernels' JSON record (per kernel: launches,
 error, ms, plain ms, the bound computed from the timed inputs and what
 sets it, and the library call's ms or null); the last line is ``{"ok": true, "device": {...}}``. Imports
@@ -2049,6 +2073,334 @@ def serving_path(seed: int, models: Path, asr: dict = W2V_BERT_2,
     return res
 
 
+# ---------------------------------------------------------- phases 4e, 10
+TRAIN_LR = 1e-4        # phase 4e's learning rate (the CPU test's)
+# Phase 4e, card vs CPU in fp32 (tests/test_torch_train_step.py's
+# tolerances): losses 1e-5 relative; step-0 gradients within 1e-4 of
+# their leaf's max |g| plus 1e-9 of the model's (linear_k.bias is zero
+# in exact arithmetic and holds rounding noise); after 3 AdamW steps
+# every param within lr and all but 0.1% within lr / 100 (Adam moves an
+# element whose gradient sits at the noise floor by ~lr either way), the
+# moments within 1e-4 of their leaf's max plus the gradient floor.
+TRAIN_LOSS_RTOL, GRAD_LEAF_RTOL, GRAD_FLOOR = 1e-5, 1e-4, 1e-9
+PARAM_TIGHT_SHARE, MOMENT_RTOL = 1e-3, 1e-4
+BF16_LOSS_RTOL = 2e-2  # a bf16 step's loss against fp32's, per row too
+# Phase 10's data: 16 training utterances of 5-25 s (one at 8 kHz) and 8
+# eval ones (a full batch of FinetuneConfig's 8, so the eval loss is
+# defined: the JAX package's evaluate averages full batches only).
+FT_TRAIN, FT_EVAL = 16, 8
+
+
+def _train_batch(seed: int, vocab_size: int) -> dict:
+    """Phase 4e's batch on the CPU: 4 rows of 2 s (99 frames) of seeded
+    features with ragged masks; labels ragged, with adjacent repeats, and
+    row 3's cannot fit its frames (45 labels in 40 frames)."""
+    rng = np.random.default_rng(seed)
+    B, T, N = 4, 99, 45
+    valid = np.array([99, 80, 61, 40])
+    fmask = (np.arange(T)[None, :] < valid[:, None]).astype(np.float32)
+    feats = rng.standard_normal((B, T, 160)).astype(np.float32) \
+        * fmask[:, :, None]
+    lens = np.array([30, 12, 5, 45])
+    labels = rng.integers(5, vocab_size, (B, N))
+    labels[1, 3] = labels[1, 2]
+    labels[0, 7:10] = labels[0, 6]
+    lmask = (np.arange(N)[None, :] < lens[:, None]).astype(np.float32)
+    labels = labels * (lmask > 0)
+    return {"features": torch.from_numpy(feats),
+            "feature_mask": torch.from_numpy(fmask),
+            "labels": torch.from_numpy(labels),
+            "label_mask": torch.from_numpy(lmask)}
+
+
+def train_reference(seed: int) -> None:
+    """Phase 4e: the fine-tuning step on the card against the CPU, on a
+    tiny model with the same weights on both (hidden 128, 2 heads of 64,
+    2 layers, conv 7), fp32 with TF32 off, SpecAugment off, 3 AdamW
+    steps each; one bf16 step on the card; the kernel wrapper's refusal
+    of an operand that requires grad, on the card."""
+    from audio_processor_tpu_torch.models import wav2vec2bert as w2v
+    from audio_processor_tpu_torch.models.flash_rel_attention import (
+        flash_rel_attention,
+    )
+    from audio_processor_tpu_torch.models.tokenizer import CTCVocab
+    from audio_processor_tpu_torch.training import train_step as ts
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    tag = "[train reference]"
+    mcfg = w2v.W2VBertConfig(
+        vocab_size=len(CTCVocab.darija_default()), hidden_size=128,
+        num_hidden_layers=2, num_attention_heads=2, intermediate_size=256,
+        conv_depthwise_kernel_size=7)
+    cpu_batch = _train_batch(seed + 10, mcfg.vocab_size)
+
+    def fresh(dev):
+        model = w2v.build_synthetic(mcfg, torch.device("cpu"), seed=seed)
+        return model.to(dev), {k: v.to(dev) for k, v in cpu_batch.items()}
+
+    sides = {"cpu": "cpu", "card": "cuda"}
+    states, batches, losses = {}, {}, {}
+    for side, dev in sides.items():
+        model, batches[side] = fresh(dev)
+        states[side] = ts.init_state(model, ts.make_optimizer(TRAIN_LR))
+        losses[side] = []
+    for step in range(3):
+        for side in sides:
+            states[side], loss = ts.train_step(states[side], batches[side],
+                                               dtype=torch.float32)
+            losses[side].append(float(loss))
+        if step == 0:
+            grads = {side: {n: p.grad.detach().cpu() for n, p in
+                            states[side].model.named_parameters()}
+                     for side in sides}
+    rel = [abs(g - c) / abs(c) for g, c in zip(losses["card"],
+                                                losses["cpu"])]
+    log(f"{tag} losses card {losses['card']} vs CPU {losses['cpu']}: max "
+        f"rel {max(rel):.2e} (tol {TRAIN_LOSS_RTOL:g})")
+    assert max(rel) <= TRAIN_LOSS_RTOL and losses["cpu"][0] > 1e4, rel
+    gmax = max(float(g.abs().max()) for g in grads["cpu"].values())
+    worst = 0.0
+    for name, ref in grads["cpu"].items():
+        got = grads["card"][name]
+        assert torch.isfinite(got).all() and torch.isfinite(ref).all(), name
+        tol = GRAD_LEAF_RTOL * float(ref.abs().max()) + GRAD_FLOOR * gmax
+        worst = max(worst, float((got - ref).abs().max()) / tol)
+    log(f"{tag} step-0 gradients: {len(grads['cpu'])} leaves, all finite, "
+        f"worst err/tol {worst:.3f}")
+    assert worst <= 1.0
+    loose = total = 0
+    cpu_p = dict(states["cpu"].model.named_parameters())
+    for name, p in states["card"].model.named_parameters():
+        d = (p.detach().cpu() - cpu_p[name].detach()).abs()
+        assert float(d.max()) <= TRAIN_LR, name
+        loose += int((d > TRAIN_LR / 100).sum())
+        total += d.numel()
+    mom = {side: ts.named_moments(states[side]) for side in sides}
+    worst_m = 0.0
+    for key, floor in (("exp_avg", GRAD_FLOOR * gmax),
+                       ("exp_avg_sq", (GRAD_FLOOR * gmax) ** 2)):
+        for name, ref in mom["cpu"][key].items():
+            tol = MOMENT_RTOL * float(ref.abs().max()) + floor
+            err = float((mom["card"][key][name].cpu() - ref).abs().max())
+            worst_m = max(worst_m, err / tol)
+    log(f"{tag} after 3 steps: params beyond lr/100 {loose}/{total} "
+        f"(tol {PARAM_TIGHT_SHARE:g} of them), all within lr; moments "
+        f"worst err/tol {worst_m:.3f}; Adam step {mom['card']['step']}")
+    assert loose <= PARAM_TIGHT_SHARE * total and worst_m <= 1.0
+    assert mom["card"]["step"] == mom["cpu"]["step"] == 3
+
+    # One bf16 step on the card from the same weights: the loss, and each
+    # row's, within 2e-2 relative of fp32's.
+    model, batch = fresh("cuda")
+    with torch.no_grad():
+        feats, mask = batch["features"], batch["feature_mask"]
+        rows = {dt: ts.ctc_loss(
+            model(feats, mask.bool(), dtype=dt, attention_impl="xla"),
+            1.0 - mask, batch["labels"], 1.0 - batch["label_mask"])
+            for dt in (torch.float32, torch.bfloat16)}
+    state = ts.init_state(model, ts.make_optimizer(TRAIN_LR))
+    _, loss16 = ts.train_step(state, batch, dtype=torch.bfloat16)
+    row_rel = ((rows[torch.bfloat16] - rows[torch.float32]).abs()
+               / rows[torch.float32].abs()).max()
+    rel16 = abs(float(loss16) - losses["card"][0]) / losses["card"][0]
+    log(f"{tag} bf16 step loss {float(loss16):.4f} vs fp32 "
+        f"{losses['card'][0]:.4f}: rel {rel16:.2e}, per row max rel "
+        f"{float(row_rel):.2e} (tol {BF16_LOSS_RTOL:g})")
+    assert rel16 <= BF16_LOSS_RTOL and float(row_rel) <= BF16_LOSS_RTOL
+
+    # The kernel has no backward: an operand that requires grad is refused
+    # on the card, before any launch.
+    dev = torch.device("cuda")
+    q, k, v = (torch.randn(1, 16, 256, 64, device=dev).bfloat16()
+               for _ in range(3))
+    E, kv = torch.randn(73, 64, device=dev), torch.ones(1, 256, device=dev)
+    before = flash_rel_attention.launches
+    try:
+        flash_rel_attention(q.requires_grad_(), k, v, E, kv, 0.125, 64, 73)
+    except RuntimeError as e:
+        assert "no backward" in str(e), e
+    else:
+        raise AssertionError("flash_rel_attention ran under autograd")
+    assert flash_rel_attention.launches == before
+    log(f"{tag} flash_rel_attention refuses a requires_grad operand on the "
+        "card: ok")
+
+
+def _finetune_data(root: Path, seed: int, vocab) -> tuple:
+    """Phase 10's manifests: FT_TRAIN training utterances of 5-25 s (the
+    first 25 s, the last at 8 kHz) and FT_EVAL eval ones of 5-25 s, tone
+    bursts over noise, with transcripts of ~2 words/s of the vocabulary's
+    letters (~10 labels/s against 50 frames/s). Returns (train manifest,
+    eval manifest, training audio s)."""
+    from audio_processor_tpu_torch.io import wav
+
+    rng = np.random.default_rng(seed)
+    letters = [t for t in vocab.vocab if len(t) == 1
+               and t != vocab.word_delimiter_token]
+    root.mkdir(parents=True)
+    paths, audio_s = [], 0.0
+    for split, n in (("train", FT_TRAIN), ("eval", FT_EVAL)):
+        rows = []
+        for i in range(n):
+            dur = 25.0 if (split, i) == ("train", 0) \
+                else float(rng.uniform(5.0, 25.0))
+            sr = 8000 if (split, i) == ("train", n - 1) else 16000
+            t = np.arange(int(sr * dur)) / sr
+            on = (np.floor(t / 0.3) % 2).astype(bool)
+            x = 0.02 * rng.standard_normal(t.size) \
+                + 0.3 * on * np.sin(2 * np.pi * rng.uniform(120, 300) * t)
+            p = root / f"{split}-{i:02d}.wav"
+            wav.write(p, x[None, :].astype(np.float32), sr)
+            words = [
+                "".join(rng.choice(letters, int(rng.integers(2, 7))))
+                for _ in range(max(1, int(2 * dur)))]
+            rows.append({"audio": str(p), "text": " ".join(words)})
+            audio_s += dur if split == "train" else 0.0
+        path = root / f"{split}.jsonl"
+        path.write_text("\n".join(json.dumps(r, ensure_ascii=False)
+                                  for r in rows))
+        paths.append(path)
+    return paths[0], paths[1], audio_s
+
+
+def finetune_path(seed: int, work: Path, models: Path) -> dict:
+    """Phase 10: CTC fine-tuning at full w2v-bert-2.0 width from phase
+    7's HF directory (a ``torch_converted/`` restore), FinetuneConfig's
+    defaults for batch (8) and length (25 s) with SpecAugment on, bf16:
+    6 steps with a checkpoint and an eval every 3, then a resume that
+    runs no step (params and moments bitwise), then a resume to 8 steps
+    (steps 6 and 7 only). Launch counts set to 0 just before."""
+    import dataclasses as dc
+
+    from audio_processor_tpu_torch.dsp.fbank import max_num_frames
+    from audio_processor_tpu_torch.models.tokenizer import CTCVocab
+    from audio_processor_tpu_torch.training import finetune as ft
+    from audio_processor_tpu_torch.training import train_step as ts
+
+    tag = "[finetune]"
+    log(f"{tag} card: {smi_line()}")
+    train_m, eval_m, audio_s = _finetune_data(
+        work / "data", seed + 10, CTCVocab.darija_default())
+    out = work / "ckpt"
+    cfg = ft.FinetuneConfig(
+        manifest=str(train_m), eval_manifest=str(eval_m),
+        output_dir=str(out), init_checkpoint=str(models / "asr"),
+        num_steps=6, checkpoint_every=3, eval_every=3, seed=seed,
+        device="cuda")
+    assert (cfg.batch_size, cfg.max_audio_sec, cfg.spec_augment) == (
+        8, 25.0, True)
+    steps, final = [], {}
+
+    def on_step(step, state, loss, times):
+        steps.append({"step": step, "loss": float(loss), **times})
+        if step == 0:
+            bad = [n for n, p in state.model.named_parameters()
+                   if not torch.isfinite(p.grad).all()]
+            assert not bad, f"non-finite gradients at step 0: {bad[:5]}"
+            for i, layer in enumerate(state.model.layers):
+                att = layer.self_attn
+                for name, p in (("linear_q", att.linear_q.weight),
+                                ("linear_k", att.linear_k.weight),
+                                ("linear_v", att.linear_v.weight),
+                                ("distance_embedding",
+                                 att.distance_embedding)):
+                    assert float(p.grad.abs().max()) > 0, (i, name)
+        if step == cfg.num_steps - 1:
+            final["params"] = {n: p.detach().cpu().clone() for n, p in
+                               state.model.named_parameters()}
+            mom = ts.named_moments(state)
+            final["moments"] = {k: {n: t.cpu().clone() for n, t in
+                                    mom[k].items()}
+                                for k in ("exp_avg", "exp_avg_sq")}
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.perf_counter()
+    model, losses = ft.finetune(cfg, on_step=on_step)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    mcfg = model.cfg
+    assert (mcfg.hidden_size, mcfg.num_hidden_layers,
+            mcfg.num_attention_heads, mcfg.intermediate_size) == (
+        W2V_BERT_2["hidden"], W2V_BERT_2["layers"], W2V_BERT_2["heads"],
+        W2V_BERT_2["ffn"]), mcfg
+    n_params = sum(p.numel() for p in model.parameters())
+    assert [s["step"] for s in steps] == list(range(6))
+    assert all(np.isfinite(s["loss"]) for s in steps), steps
+    meta = json.loads((out / "step_6" / "metadata.json").read_text())
+    assert set(meta["eval"]) >= {"wer", "cer", "loss"}, meta.get("eval")
+    assert np.isfinite(meta["eval"]["loss"]) and meta["step"] == 6
+    assert (out / "step_3" / "params.pt").exists()
+    del model
+
+    # Resume with nothing left to run: bitwise params, then the moments
+    # and step through load_train_state (timed, as is a save).
+    model, losses2 = ft.finetune(dc.replace(cfg, resume=True))
+    assert losses2 == []
+    for n, p in model.named_parameters():
+        assert torch.equal(p.detach().cpu(), final["params"][n]), n
+    state = ts.init_state(model, ts.make_optimizer())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = ft.load_train_state(state, out)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    mom = ts.named_moments(state)
+    assert state.step == mom["step"] == 6
+    for key, want in final["moments"].items():
+        for n, t in want.items():
+            assert torch.equal(mom[key][n].cpu(), t), (key, n)
+    t0 = time.perf_counter()
+    ft.save_train_state(state, out)
+    save_s = time.perf_counter() - t0
+    state_bytes = (out / "state_latest" / ft.STATE_FILE).stat().st_size
+    del model, state, mom, final
+
+    # Resume to 8 steps: steps 6 and 7 alone.
+    more = []
+    _, losses3 = ft.finetune(
+        dc.replace(cfg, resume=True, num_steps=8),
+        on_step=lambda step, state, loss, times: more.append(
+            (step, state.step, float(loss))))
+    assert [m[:2] for m in more] == [(6, 7), (7, 8)], more
+    assert all(np.isfinite(m[2]) for m in more) and len(losses3) == 1
+    counts = _launches()
+    assert counts["flash_rel_attention"] == 0 \
+        and counts["flash_attention"] == 0, counts
+
+    timed = steps[1:]                       # step 0 pays first use
+    med = {k: float(np.median([s[k] for s in timed]))
+           for k in ("prep_s", "fwd_bwd_s", "opt_s")}
+    wall = float(np.median([s["prep_s"] + s["fwd_bwd_s"] + s["opt_s"]
+                            for s in timed]))
+    frames = float(np.median([s["frames"] for s in timed]))
+    padded = cfg.batch_size * (max_num_frames(
+        int(cfg.max_audio_sec * cfg.sample_rate)) // 2)   # 8 x 1249
+    total = torch.cuda.get_device_properties(0).total_memory
+    flop_share = 6 * n_params * padded / wall / BF16_FLOPS
+    log(f"{tag} w2v-bert-2.0 width ({n_params / 1e6:.1f} M params), batch "
+        f"{cfg.batch_size} x 25 s ({padded} padded frames), bf16, remat, "
+        f"SpecAugment; {audio_s:.1f} s of training audio in {FT_TRAIN} "
+        f"utterances")
+    log(f"{tag} losses by step {[round(s['loss'], 4) for s in steps]}, "
+        f"then {[round(m[2], 4) for m in more]}; eval @6 {meta['eval']}")
+    log(f"{tag} step wall, median of steps 1-5: {wall:.4f} s = prep "
+        f"{med['prep_s']:.4f} + forward+backward {med['fwd_bwd_s']:.4f} + "
+        f"optimizer {med['opt_s']:.4f} s; per step {steps}")
+    log(f"{tag} training RTFx {frames * 0.02 / wall:.1f} (valid frames x "
+        f"20 ms per wall s), {frames / wall:.0f} valid frames/s, "
+        f"{padded / wall:.0f} padded frames/s; model FLOP share of bf16 "
+        f"peak (6 N x padded frames / step / 989 TFLOP/s) "
+        f"{flop_share:.4f}")
+    log(f"{tag} peak memory {peak / 2**30:.2f} GiB = {peak / total:.4f} of "
+        f"the card; state {state_bytes / 2**30:.2f} GiB, save "
+        f"{save_s:.2f} s, restore {restore_s:.2f} s; first run (6 steps, "
+        f"3 evals, 2 checkpoints) {run_s:.1f} s; launches {counts}")
+    return {"launches": counts}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2064,6 +2416,7 @@ def main() -> int:
     message_reference(args.seed, "auto", profile=True)
     message_reference(args.seed, "flash", profile=False)
     serving_reference(args.seed)
+    train_reference(args.seed)
     rel.update(main_path(args.seed, "auto", 8, 3))
     flash.update(main_path(args.seed, "flash", 4, 1))
     assert rel["other"] == 0 and flash["other"] == 0
@@ -2077,6 +2430,7 @@ def main() -> int:
         del prod
         message = message_path(args.seed, Path(tmp) / "run8")
         served = serving_path(args.seed, models)
+        tuned = finetune_path(args.seed, Path(tmp) / "run10", models)
     assert int8["launches"] > 0
     assert "jax" not in sys.modules
     assert not any(m.split(".")[0] == "audio_processor_tpu"
@@ -2109,9 +2463,10 @@ def main() -> int:
 
     # flash_rel runs on three paths: the batch path (phase 5), the
     # message path (phase 8, fused and mono dispatches) and the server
-    # (phase 9).
+    # (phase 9); fine-tuning (phase 10) runs the plain attention, 0.
     rel_paths = {"batch": rel["launches"], "message": message["launches"],
-                 "serve": served["launches"]}
+                 "serve": served["launches"],
+                 "finetune": tuned["launches"]["flash_rel_attention"]}
     kernels = [
         row("flash_rel_attention (onepass)", "flash_rel_attention.cu",
             "audio_processor_tpu/models/flash_rel_attention.py:169",

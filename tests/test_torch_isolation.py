@@ -1,6 +1,6 @@
 """The port stands alone: importing every module of
 ``audio_processor_tpu_torch``, ``chip_smoke.py`` and the port's tools
-loads neither JAX nor any module of the JAX package
+loads neither JAX (nor optax or orbax) nor any module of the JAX package
 ``audio_processor_tpu``, and no source of the port names that package
 in an import statement, lazy ones inside functions included. Loading HF
 checkpoints and tokenizing text needs none of ``transformers``,
@@ -34,7 +34,8 @@ for i, path in enumerate(sys.argv[1:]):
     spec = importlib.util.spec_from_file_location(f"_script_{i}", path)
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "audio_processor_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "optax", "orbax",
+                                    "audio_processor_tpu"))
 print(json.dumps({"modules": names, "bad": bad}))
 """
 
@@ -54,12 +55,13 @@ def test_importing_the_port_loads_no_jax_and_no_jax_package():
     assert r.returncode == 0, r.stderr[-4000:]
     out = json.loads(r.stdout.strip().splitlines()[-1])
     assert len(out["modules"]) > 50     # io/ alone holds some 30 modules
-    # The message path's modules, the facade and the serving modules are
-    # among them.
+    # The message path's modules, the facade, the serving modules and
+    # the fine-tuning modules are among them.
     assert {f"audio_processor_tpu_torch.{m}" for m in (
         "models.vad", "models.ctc_beam", "host.darija",
         "pipeline.segmenter", "pipeline.facades", "obs.profiler",
-        "serving", "grpc_serving", "protos.serving_pb2", "utils.system")} \
+        "serving", "grpc_serving", "protos.serving_pb2", "utils.system",
+        "training.train_step", "training.finetune", "utils.metrics")} \
         <= set(out["modules"])
     assert out["bad"] == []
 
@@ -70,7 +72,8 @@ def test_no_source_names_the_jax_package(root):
     assert files
     offenders = [f"{f.relative_to(REPO)}: {name}" for f in files
                  for name in _imported_names(f)
-                 if name.split(".")[0] in ("jax", "audio_processor_tpu")]
+                 if name.split(".")[0] in ("jax", "optax", "orbax",
+                                           "audio_processor_tpu")]
     assert offenders == []
 
 

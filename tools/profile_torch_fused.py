@@ -72,19 +72,21 @@ def category(event: dict) -> str:
     return "other"
 
 
-def breakdown(trace: dict) -> dict:
-    """Device time of the one ``SPAN`` call in a Chrome trace: per
-    category and per kernel name (ms, count), busy (union) ms, and the
-    window from the host span's start to the last device end."""
+def breakdown(trace: dict, span_name: str = SPAN,
+              categorize=category) -> dict:
+    """Device time of the one ``span_name`` call in a Chrome trace: per
+    ``categorize`` category and per kernel name (ms, count), busy (union)
+    ms, and the window from the host span's start to the last device
+    end."""
     events = trace["traceEvents"]
-    (span,) = [e for e in events if e.get("name") == SPAN
+    (span,) = [e for e in events if e.get("name") == span_name
                and e.get("ph") == "X" and e.get("cat") == "user_annotation"]
     dev = [e for e in events if e.get("ph") == "X"
            and e.get("cat") in DEVICE_CATS and e["ts"] >= span["ts"]]
     by_cat: dict = {}
     by_name: dict = {}
     for e in dev:
-        for table, key in ((by_cat, category(e)), (by_name, e["name"])):
+        for table, key in ((by_cat, categorize(e)), (by_name, e["name"])):
             ms, n = table.get(key, (0.0, 0))
             table[key] = (ms + e["dur"] / 1e3, n + 1)
     busy, end = 0.0, span["ts"]
