@@ -9,9 +9,15 @@ and the batch sweep(s); ``enable_profiling: true`` traces the first
 sweep with torch.profiler (obs/profiler.py). ``--serve [--port P]
 [--grpc-port G]`` runs the online server instead (serving.py, and
 grpc_serving.py on G) on the same device, until SIGTERM or Ctrl-C
-drains it. Multi-process launches are not ported yet: a launch that
-names more than one process (``JAX_COORDINATOR_ADDRESS``, ``WORLD_SIZE``)
-is refused before any file is scanned or any request served.
+drains it.
+
+Several processes: ``torchrun --nproc-per-node N -m
+audio_processor_tpu_torch.cli ...`` (or the JAX package's
+``JAX_COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES`` / ``JAX_PROCESS_ID``).
+Each process joins the group (parallel/distributed.py; NCCL when each has
+a card of its own, ``--dist-backend gloo`` to share one, gloo on the CPU),
+runs on ``cuda:<LOCAL_RANK>`` and processes the calls it owns by call-id
+hash; ``--serve`` runs a server in each process, as the reference does.
 """
 
 from __future__ import annotations
@@ -112,7 +118,12 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "on this port (0 = HTTP only)")
     p.add_argument("--device", default="cuda",
                    help="torch device for the ASR program (default cuda; "
-                        "cpu only when asked for)")
+                        "cpu only when asked for; under several processes "
+                        "cuda means cuda:<LOCAL_RANK>)")
+    p.add_argument("--dist-backend", default=None,
+                   help="process-group backend under several processes "
+                        "(default NCCL, which needs a card per process; "
+                        "gloo on the CPU or to share a card)")
     return p
 
 
@@ -188,11 +199,14 @@ def main(argv=None) -> int:
         overrides["output_folder"] = args.output
     cfg = load_config(args.config, overrides)
     setup_logging(cfg.logs_folder)
-    from audio_processor_tpu_torch.pipeline.engine import (
-        DataProcessor, refuse_multi_process,
-    )
+    from audio_processor_tpu_torch.parallel import distributed as pdist
+    from audio_processor_tpu_torch.pipeline.engine import DataProcessor
 
-    refuse_multi_process()
+    pdist.initialize_distributed(
+        backend=args.dist_backend or ("gloo" if device.type == "cpu"
+                                      else None))
+    if pdist.process_count() > 1 and args.device == "cuda":
+        device = pdist.local_device("cuda")
     try:
         cfg.validate()
     except ValueError as e:

@@ -1,10 +1,11 @@
-"""Polyphase sinc resampler, host (numpy) half (port of dsp/resample.py).
+"""Polyphase sinc resampler (port of dsp/resample.py).
 
 torchaudio ``Resample`` numerics (lowpass_filter_width=6, rolloff=0.99,
-hann window). The pipeline resamples decoded calls on the host
-(``pipeline.chunker.prepare_and_split``), so this is the half the batch
-path runs; the reference's jitted device ``resample`` has no caller on
-the main path and waits in ROADMAP.md.
+hann window). Kernels are built once per (orig, new) rate pair on the
+host in float64. :func:`resample_np` is the host half, which the pipeline
+runs on decoded calls (``pipeline.chunker.prepare_and_split``);
+:func:`resample` is the device half, one strided convolution on the
+tensor's device whose output channels are the gcd-reduced phases.
 """
 
 from __future__ import annotations
@@ -14,6 +15,8 @@ import math
 from typing import Tuple
 
 import numpy as np
+import torch
+import torch.nn.functional as F
 
 
 @functools.lru_cache(maxsize=32)
@@ -60,6 +63,29 @@ def sinc_resample_kernel(orig_freq: int, new_freq: int,
 def resampled_length(length: int, orig_freq: int, new_freq: int) -> int:
     g = math.gcd(int(orig_freq), int(new_freq))
     return int(math.ceil(new_freq // g * length / (orig_freq // g)))
+
+
+def resample(waveform: torch.Tensor, orig_freq: int, new_freq: int,
+             lowpass_filter_width: int = 6,
+             rolloff: float = 0.99) -> torch.Tensor:
+    """Resample [..., T] -> [..., ceil(T * new/orig)] on the tensor's
+    device, float32 out; identity when the rates match. True fp32 or
+    better, as the reference's HIGHEST precision: on CUDA the convolution
+    runs in float64 (cuDNN would run an fp32 one in TF32 by default)."""
+    if orig_freq == new_freq:
+        return waveform
+    kernels, width, orig_g, new_g = sinc_resample_kernel(
+        orig_freq, new_freq, lowpass_filter_width, rolloff)
+    shape = waveform.shape
+    T = shape[-1]
+    dtype = torch.float64 if waveform.is_cuda else torch.float32
+    x = F.pad(waveform.reshape(-1, 1, T).to(dtype),
+              (width, width + orig_g))                      # [N, 1, T+K]
+    k = torch.from_numpy(kernels).to(x.device, dtype)[:, None, :]
+    y = F.conv1d(x, k, stride=orig_g)                       # [N, new_g, T']
+    y = y.transpose(1, 2).reshape(x.shape[0], -1)           # interleave
+    tgt = resampled_length(T, orig_freq, new_freq)
+    return y[:, :tgt].reshape(*shape[:-1], tgt).float()
 
 
 def resample_np(waveform: np.ndarray, orig_freq: int,

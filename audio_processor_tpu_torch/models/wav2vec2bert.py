@@ -27,6 +27,12 @@ Conventions kept from the JAX package:
 - int8 W8A8 (``quantization: int8``): :func:`quantize_model` swaps the
   reference's set of dense layers for :class:`~.quant.QuantLinear`,
   which ``dense`` runs through ``quant.dense_int8``.
+- Tensor and sequence parallel (parallel/mesh.py ``shard_params``, which
+  calls :meth:`Wav2Vec2Bert.set_parallel`): over a 'model' group each
+  rank runs H/tp heads and FFN/tp columns, with a sum after the
+  row-parallel products; over a 'seq' group each rank runs 1/sp of the
+  frames and gathers keys, values and the conv's input where attention and
+  the depthwise conv need the whole sequence, then the logits.
 """
 
 from __future__ import annotations
@@ -34,7 +40,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -48,6 +54,10 @@ from audio_processor_tpu_torch.models.flash_rel_attention import (
 )
 from audio_processor_tpu_torch.models.quant import (
     QuantLinear, dense_int8, is_quantized, quantize_linears,
+)
+from audio_processor_tpu_torch.parallel.collectives import (
+    copy_to_group, gather_partial, gather_replicated, group_rank, group_size,
+    reduce_from_group,
 )
 
 
@@ -120,6 +130,21 @@ def _ln(cfg: W2VBertConfig, d: int) -> nn.LayerNorm:
     return nn.LayerNorm(d, eps=cfg.layer_norm_eps)
 
 
+class ParallelGroups(NamedTuple):
+    """The process groups a sharded model computes over (None: no split):
+    'model' splits heads and FFN columns, 'seq' splits frames."""
+
+    model: Any = None
+    seq: Any = None
+
+
+def row_parallel(lin: nn.Linear, x: torch.Tensor, group) -> torch.Tensor:
+    """A row-parallel product: this rank's input columns times its slice
+    of the weight, summed over ``group``, then the (replicated) bias."""
+    y = reduce_from_group(F.linear(x, lin.weight.to(x.dtype)), group)
+    return y if lin.bias is None else y + lin.bias.to(x.dtype)
+
+
 class FeedForward(nn.Module):
     def __init__(self, cfg: W2VBertConfig):
         super().__init__()
@@ -127,31 +152,44 @@ class FeedForward(nn.Module):
                                             cfg.intermediate_size)
         self.output_dense = nn.Linear(cfg.intermediate_size,
                                       cfg.hidden_size)
+        self.tp = None          # 'model' group: FFN/tp columns per rank
 
     def forward(self, x):
-        return dense(self.output_dense, F.silu(dense(self.intermediate_dense,
-                                                     x)))
+        if self.tp is None:
+            return dense(self.output_dense,
+                         F.silu(dense(self.intermediate_dense, x)))
+        h = F.silu(dense(self.intermediate_dense, copy_to_group(x, self.tp)))
+        return row_parallel(self.output_dense, h, self.tp)
 
 
 @functools.lru_cache(maxsize=32)
-def _distance_index(seq_len: int, left: int, right: int,
-                    device: torch.device) -> torch.Tensor:
-    """Static [L, L] map: (query i, key j) -> clipped-distance bucket."""
-    pos = torch.arange(seq_len, device=device)
-    return (pos[None, :] - pos[:, None]).clamp(-left, right) + left
+def _distance_index(q_len: int, k_len: int, q_offset: int, left: int,
+                    right: int, device: torch.device) -> torch.Tensor:
+    """Static [Lq, Lk] map: (query i, key j) -> clipped-distance bucket,
+    the queries at frames q_offset .. q_offset+Lq-1 of the keys'. Made
+    outside inference mode: the cache outlives the call, and an inference
+    tensor could not be saved for a later backward."""
+    with torch.inference_mode(False):
+        qpos = torch.arange(q_offset, q_offset + q_len, device=device)
+        kpos = torch.arange(k_len, device=device)
+        return (kpos[None, :] - qpos[:, None]).clamp(-left, right) + left
 
 
 def _relative_bias(cfg: W2VBertConfig, q: torch.Tensor, E: torch.Tensor,
-                   out_dtype: torch.dtype) -> torch.Tensor:
+                   out_dtype: torch.dtype, k_len: Optional[int] = None,
+                   q_offset: int = 0) -> torch.Tensor:
     """Unscaled relative_key bias rel[b,h,l,m] = q_l . E[clip(m-l)] as
-    [B, H, L, L] in ``out_dtype``: the bucket logits q . E^T (fp32
+    [B, H, Lq, Lk] in ``out_dtype``: the bucket logits q . E^T (fp32
     accumulation) rounded to ``out_dtype``, then gathered with the
-    static distance index (rounding commutes with the gather)."""
+    static distance index (rounding commutes with the gather). Keys
+    default to the queries' frames; under sequence parallel the local
+    queries start at ``q_offset`` of ``k_len`` gathered keys."""
     B, H, L, _ = q.shape
-    idx = _distance_index(L, cfg.left_max_position_embeddings,
+    Lk = L if k_len is None else k_len
+    idx = _distance_index(L, Lk, q_offset, cfg.left_max_position_embeddings,
                           cfg.right_max_position_embeddings, q.device)
     srel = (q.float() @ E.float().T).to(out_dtype)       # [B, H, L, P]
-    return srel.gather(3, idx.expand(B, H, L, L))
+    return srel.gather(3, idx.expand(B, H, L, Lk))
 
 
 def flash_bias(cfg: W2VBertConfig, q: torch.Tensor, E: torch.Tensor,
@@ -176,22 +214,35 @@ class SelfAttention(nn.Module):
         self.linear_out = nn.Linear(h, h)
         self.distance_embedding = nn.Parameter(
             torch.empty(cfg.num_positions, cfg.head_size))
+        self.tp = None          # 'model' group: H/tp heads per rank
+        self.sp = None          # 'seq' group: 1/sp of the frames per rank
 
     def _heads(self, lin, x):
         B, L, _ = x.shape
-        nh, hd = self.cfg.num_attention_heads, self.cfg.head_size
-        return dense(lin, x).view(B, L, nh, hd).transpose(1, 2).contiguous()
+        return dense(lin, x).view(B, L, -1, self.cfg.head_size) \
+            .transpose(1, 2).contiguous()
 
     def forward(self, x, attn_bias, kv_mask, impl: str):
         B, L, H = x.shape
         cfg = self.cfg
+        E = self.distance_embedding
+        if self.tp is not None:
+            # Replicated inputs into this rank's heads: their gradients
+            # (and the distance embedding's) sum over the 'model' group.
+            x, E = copy_to_group(x, self.tp), copy_to_group(E, self.tp)
         q = self._heads(self.linear_q, x)                # [B, nh, L, hd]
         k = self._heads(self.linear_k, x)
         v = self._heads(self.linear_v, x)
+        q_offset = 0
+        if self.sp is not None:
+            # Local query frames against every frame's keys and values.
+            q_offset = group_rank(self.sp) * L
+            k = gather_partial(k, 2, self.sp)
+            v = gather_partial(v, 2, self.sp)
         scale = 1.0 / math.sqrt(cfg.head_size)
         left, P = cfg.left_max_position_embeddings, cfg.num_positions
-        E = self.distance_embedding.to(x.dtype)          # [P, hd]
-        kernel = (impl in KERNEL_L_MULTIPLE
+        E = E.to(x.dtype)                                # [P, hd]
+        kernel = (impl in KERNEL_L_MULTIPLE and self.sp is None
                   and L % KERNEL_L_MULTIPLE[impl] == 0)
         if impl == "flash_rel" and kernel:
             out = flash_rel_attention(q, k, v, E, kv_mask, scale, left, P)
@@ -203,11 +254,14 @@ class SelfAttention(nn.Module):
             # Plain path: scores and the static-index relative bias in
             # fp32, probabilities rounded to the compute dtype.
             scores = (q.float() @ k.float().transpose(-1, -2)) * scale \
-                + _relative_bias(cfg, q, E, torch.float32) * scale \
+                + _relative_bias(cfg, q, E, torch.float32, k.shape[2],
+                                 q_offset) * scale \
                 + attn_bias
             probs = torch.softmax(scores, dim=-1).to(x.dtype)
             out = (probs.float() @ v.float()).to(x.dtype)
-        out = out.transpose(1, 2).reshape(B, L, H)
+        out = out.transpose(1, 2).reshape(B, L, -1)
+        if self.tp is not None:
+            return row_parallel(self.linear_out, out, self.tp)
         return dense(self.linear_out, out)
 
 
@@ -222,6 +276,7 @@ class ConvModule(nn.Module):
         self.depthwise_conv = nn.Conv1d(h, h, K, groups=h, bias=False)
         self.depthwise_layer_norm = _ln(cfg, h)
         self.pointwise_conv2 = nn.Linear(h, h, bias=False)
+        self.sp = None          # 'seq' group: 1/sp of the frames per rank
 
     def forward(self, x, pad_mask):
         x = layer_norm(self.layer_norm, x)
@@ -229,7 +284,15 @@ class ConvModule(nn.Module):
         a, g = dense(self.pointwise_conv1, x).chunk(2, dim=-1)
         x = a * torch.sigmoid(g)                                 # GLU
         K = self.depthwise_conv.kernel_size[0]
-        xt = F.pad(x.transpose(1, 2), (K - 1, 0))                # causal
+        L = x.shape[1]
+        if self.sp is None:
+            xt = F.pad(x.transpose(1, 2), (K - 1, 0))            # causal
+        else:
+            # The K-1 frames before this rank's come from the ranks
+            # before it: gather the sequence, keep this rank's window.
+            full = F.pad(gather_partial(x, 1, self.sp).transpose(1, 2),
+                         (K - 1, 0))
+            xt = full[:, :, group_rank(self.sp) * L:][:, :, :L + K - 1]
         w = self.depthwise_conv.weight
         if x.dtype == torch.float32 and x.is_cuda:
             # fp32 compute means true fp32: cuDNN would run an fp32
@@ -282,6 +345,17 @@ class Wav2Vec2Bert(nn.Module):
         self.layers = nn.ModuleList(ConformerLayer(cfg)
                                     for _ in range(cfg.num_hidden_layers))
         self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size)
+        self.parallel = ParallelGroups()
+
+    def set_parallel(self, groups: ParallelGroups) -> None:
+        """Compute over ``groups`` from now on (parallel/mesh.py
+        ``shard_params``, which also slices the weights for 'model')."""
+        if groups.model is not None and is_quantized(self):
+            raise ValueError("an int8 model does not run tensor parallel")
+        self.parallel = groups
+        for layer in self.layers:
+            layer.self_attn.tp = layer.ffn1.tp = layer.ffn2.tp = groups.model
+            layer.self_attn.sp = layer.conv_module.sp = groups.seq
 
     def forward(self, input_features: torch.Tensor,
                 attention_mask: Optional[torch.Tensor] = None,
@@ -291,26 +365,43 @@ class Wav2Vec2Bert(nn.Module):
         """``remat`` recomputes each conformer layer in the backward pass
         instead of keeping its activations (the JAX package's
         ``jax.checkpoint`` per layer): the same logits and gradients, one
-        layer's activations alive at a time."""
+        layer's activations alive at a time.
+
+        Under sequence parallel every rank passes the whole rows; each
+        keeps its 1/sp of the frames (the frames padded, masked, to a
+        multiple of sp) and the logits come back whole on every rank."""
         impl = resolve_attention_impl(attention_impl, input_features.device)
         B, L, _ = input_features.shape
         if attention_mask is None:
             attention_mask = torch.ones(B, L, dtype=torch.bool,
                                         device=input_features.device)
         pad_mask = attention_mask.float()
+        attn_bias = ((1.0 - pad_mask) * -1e9)[:, None, None, :]
+        x = input_features
+        sp = self.parallel.seq
+        if sp is not None:
+            n = group_size(sp)
+            pad = (-L) % n
+            x = F.pad(x, (0, 0, 0, pad))
+            pad_mask = F.pad(pad_mask, (0, pad))
+            attn_bias = ((1.0 - pad_mask) * -1e9)[:, None, None, :]
+            Ll = (L + pad) // n
+            s = group_rank(sp) * Ll
+            x, pad_mask = x[:, s:s + Ll], pad_mask[:, s:s + Ll]
         fp = self.feature_projection
-        x = input_features.to(dtype)
-        x = dense(fp.projection, layer_norm(fp.layer_norm, x))
+        x = dense(fp.projection, layer_norm(fp.layer_norm, x.to(dtype)))
         # Zero padded positions once at encoder entry (HF semantics).
         x = x * pad_mask[..., None].to(dtype)
-        attn_bias = ((1.0 - pad_mask) * -1e9)[:, None, None, :]
         for layer in self.layers:
             if remat:
                 x = torch.utils.checkpoint.checkpoint(
                     layer, x, attn_bias, pad_mask, impl, use_reentrant=False)
             else:
                 x = layer(x, attn_bias, pad_mask, impl)
-        return dense(self.lm_head, x.float())
+        logits = dense(self.lm_head, x.float())
+        if sp is not None:
+            logits = gather_replicated(logits, 1, sp)[:, :L]
+        return logits
 
 
 def build_synthetic(cfg: W2VBertConfig, device: torch.device,

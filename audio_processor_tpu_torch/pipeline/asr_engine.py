@@ -27,11 +27,20 @@ Darija vocabulary (synthetic mode, logged). ``quantization: int8`` runs
 the encoder's dense layers as W8A8 (models/quant.py), on a loaded or a
 given model alike.
 
-Not ported yet (ROADMAP.md, Queue 1): device meshes.
+With a mesh (parallel/mesh.py) of ``data`` devices in one process the
+engine keeps one replica of the model per 'data' device (the first along
+'seq' and 'model', which the reference's engine replicates over): it
+scales ``device_chunks`` by ``data``, splits each padded device batch into
+``data`` equal slices, runs each slice on its replica and concatenates
+the rows on the host, so the rows equal the one-device engine's. The
+mono-rows programs run on the first replica. A mesh of processes gives
+this process one replica on its own device; the calls are split across
+processes by ``owns_call`` (pipeline/engine.py).
 """
 
 from __future__ import annotations
 
+import copy
 import logging
 from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
@@ -103,9 +112,18 @@ class _SubBatch:
 
 class ASREngine:
     def __init__(self, config, device, model: Optional[w2v.Wav2Vec2Bert]
-                 = None, vocab: Optional[CTCVocab] = None):
+                 = None, vocab: Optional[CTCVocab] = None, mesh=None):
         self.config = config
-        self.device = torch.device(device)
+        self.mesh = mesh
+        if mesh is None:
+            replica_devices = [torch.device(device)]
+        elif mesh.multi_process:
+            replica_devices = [mesh.local_device]
+        else:
+            replica_devices = [torch.device(d) for d in
+                               mesh.devices.reshape(mesh.devices.shape[0],
+                                                    -1)[:, 0]]
+        self.device = replica_devices[0]
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("ASREngine asked for CUDA, but "
                                "torch.cuda.is_available() is False")
@@ -124,6 +142,12 @@ class ASREngine:
             logger.info("int8 W8A8 inference enabled")
             self.model = w2v.quantize_model(self.model)
         self.model_cfg = model.cfg
+        # One model per 'data' device (the first is self.model), and the
+        # fused-program calls each has run.
+        self.replicas = [self.model] + [
+            copy.deepcopy(self.model).to(d) for d in replica_devices[1:]]
+        self.replica_devices = replica_devices
+        self.replica_dispatches = [0] * len(self.replicas)
         self.vocab = vocab or CTCVocab.darija_default()
         sr = int(config.get("target_sample_rate", 16000))
         self.bucket_samples = tuple(
@@ -145,7 +169,8 @@ class ASREngine:
                 chunk_samples, chunk_samples)
             self.bucket_samples = tuple(
                 sorted(set(self.bucket_samples) | {chunk_samples}))
-        self.device_chunks = int(config.get("chunk_batch_size", 16))
+        self.device_chunks = int(config.get("chunk_batch_size", 16)) \
+            * len(self.replicas)
         self.device_batch = self.device_chunks * 3   # rows: 3 views each
         # int16 wire: half the host->device bytes, lossless for PCM16
         # sources. Disable for exact float parity on synthetic floats.
@@ -194,10 +219,11 @@ class ASREngine:
     # ------------------------------------------------------------------
     @torch.inference_mode()
     def _fused(self, buf: torch.Tensor, lengths: torch.Tensor,
-               bucket_len: int):
-        """The fused device program: buf [N, 2, bucket+2*PAD] (agent,
-        client; int16 or f32) and lengths [N] -> (ids [3N, L'], mask
-        [3N, L'], acoustic features [N, 2, 38]), all on the device."""
+               bucket_len: int, replica: int = 0):
+        """The fused device program on replica ``replica``: buf [N, 2,
+        bucket+2*PAD] (agent, client; int16 or f32) and lengths [N] ->
+        (ids [3N, L'], mask [3N, L'], acoustic features [N, 2, 38]), all on
+        the replica's device."""
         x = buf.float()
         if buf.dtype == torch.int16:
             x = x / 32768.0
@@ -209,13 +235,26 @@ class ASREngine:
                            dim=1).reshape(3 * N, bucket_len)
         feats, mask = log_mel_frontend(rows, lengths.repeat_interleave(3))
         feats, mask = pad_seq(feats, mask)
-        logits = self.model(feats, mask, dtype=self.dtype,
-                            attention_impl=self.attention_impl)
+        logits = self.replicas[replica](feats, mask, dtype=self.dtype,
+                                        attention_impl=self.attention_impl)
         ids = w2v.greedy_ctc_ids(logits, mask, self.model_cfg.pad_token_id)
         af = extract_features_batch(x.reshape(2 * N, -1),
                                     lengths.repeat_interleave(2))
         self.dispatches += 1
+        self.replica_dispatches[replica] += 1
         return ids, mask, af.reshape(N, 2, -1)
+
+    def _run_fused(self, buf: np.ndarray, lengths: np.ndarray,
+                   bucket_len: int):
+        """Enqueue the fused program on one padded device batch, one
+        equal slice per replica (the whole batch when there is one):
+        a list of the replicas' outputs, concatenated on the host at
+        fetch."""
+        n = buf.shape[0] // len(self.replicas)
+        return [self._fused(upload(buf[i * n:(i + 1) * n], dev),
+                            upload(lengths[i * n:(i + 1) * n], dev),
+                            bucket_len, replica=i)
+                for i, dev in enumerate(self.replica_devices)]
 
     @torch.inference_mode()
     def _mono(self, rows: torch.Tensor, lengths: torch.Tensor,
@@ -297,11 +336,12 @@ class ASREngine:
     def _tail_size(self, n: int) -> int:
         """Static device chunk count for a sub-batch of n chunks: the
         full size mid-bucket, or the smallest power-of-two fraction
-        (>= 1/4) that fits a final partial sub-batch."""
+        (>= 1/4, still divisible by the replica count) that fits a final
+        partial sub-batch."""
         n_dev = self.device_chunks
         for _ in range(2):
             half = n_dev // 2
-            if n <= half and half >= 1:
+            if n <= half and half % len(self.replicas) == 0 and half >= 1:
                 n_dev = half
             else:
                 break
@@ -403,8 +443,7 @@ class ASREngine:
                     fut = prep_futs.pop(k, None)
                     buf, lengths = (fut.result() if fut is not None
                                     else _prep(k))
-                    out = self._fused(self._upload(buf),
-                                      self._upload(lengths), sub.bucket_len)
+                    out = self._run_fused(buf, lengths, sub.bucket_len)
                     self._warmed.add((sub.bucket_len, buf.shape[0]))
                     pending.append((sub.chunks, out, None))
                 except Exception as e:  # a failed batch fails its files
@@ -424,7 +463,10 @@ class ASREngine:
             n = len(sub_chunks)
             if err is None:
                 try:
-                    ids, mask, *af = (t.cpu().numpy() for t in out)
+                    parts = out if isinstance(out, list) else [out]
+                    ids, mask, *af = (
+                        np.concatenate([p[i].cpu().numpy() for p in parts])
+                        for i in range(len(parts[0])))
                     af = af[0][:n] if af else None   # unfused: none
                 except Exception as e:
                     logger.exception("ASR fetch failed: %s", e)

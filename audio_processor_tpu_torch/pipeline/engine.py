@@ -14,11 +14,12 @@ What differs from the reference:
 - ``setup_models`` builds the port's ASR engine and sentiment analyzer
   on an explicit torch device;
 - ``_decode_one`` resamples through the port's ``prepare_and_split``;
-- ``run`` runs in one process: multi-process sharding and device
-  meshes are not ported yet and raise NotImplementedError when
-  configured (:func:`refuse_multi_process` reads the launch's
-  environment, since an unsharded multi-process run would write every
-  row in every process).
+- ``setup_models`` builds the engine over ``mesh`` (or the mesh that
+  ``mesh_shape`` names: one replica per 'data' device of this process;
+  on a CPU processor a virtual mesh of CPU replicas);
+- under several processes (parallel/distributed.py), ``run`` joins the
+  launch (if its caller has not) and keeps the calls this process owns
+  by call-id hash, as the reference does.
 
 The VAD message path (``enable_message_path`` with a database) runs as
 in the reference: :meth:`DataProcessor._run_message_path`.
@@ -29,7 +30,6 @@ from __future__ import annotations
 import gc
 import json
 import logging
-import os
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -51,34 +51,6 @@ from audio_processor_tpu_torch.pipeline.markers import (
 )
 
 logger = logging.getLogger(__name__)
-
-
-def refuse_multi_process() -> None:
-    """Raise NotImplementedError when this process is one of several:
-    the JAX package's multi-host variables (``JAX_COORDINATOR_ADDRESS``
-    with ``JAX_NUM_PROCESSES`` unset or above 1, as its bootstrap would
-    join a cluster), a torchrun-style ``WORLD_SIZE`` above 1, or an
-    initialised ``torch.distributed`` group of more than one. The
-    reference shards calls by call-id hash there (parallel/distributed
-    ``owns_call``); the port has no such sharding yet, and every process
-    would write every row."""
-    reason = None
-    if os.environ.get("JAX_COORDINATOR_ADDRESS") and int(
-            os.environ.get("JAX_NUM_PROCESSES") or 0) != 1:
-        reason = ("JAX_COORDINATOR_ADDRESS is set (JAX_NUM_PROCESSES="
-                  f"{os.environ.get('JAX_NUM_PROCESSES')!r})")
-    elif int(os.environ.get("WORLD_SIZE") or 1) > 1:
-        reason = f"WORLD_SIZE={os.environ['WORLD_SIZE']}"
-    elif torch.distributed.is_available() \
-            and torch.distributed.is_initialized() \
-            and torch.distributed.get_world_size() > 1:
-        reason = "torch.distributed is initialised with world size " \
-            f"{torch.distributed.get_world_size()}"
-    if reason is not None:
-        raise NotImplementedError(
-            f"multi-process runs are not ported yet ({reason}); the "
-            "call-id sharding waits for ROADMAP.md Queue 1 item 6 "
-            "(parallel/)")
 
 
 class MemoryManager:
@@ -109,7 +81,7 @@ class MemoryManager:
 class DataProcessor:
     def __init__(self, config, db_manager=None, asr_engine=None,
                  sentiment_analyzer=None, topic_classifier=None,
-                 monitor=None, device="cuda"):
+                 monitor=None, device="cuda", mesh=None):
         self.config = config
         self.db_manager = db_manager
         self.asr_engine = asr_engine
@@ -117,6 +89,7 @@ class DataProcessor:
         self.topic_classifier = topic_classifier
         self.monitor = monitor
         self.device = torch.device(device)
+        self.mesh = mesh
 
         self.memory_manager = MemoryManager(
             float(config.get("max_memory_gb", 64.0)),
@@ -246,15 +219,19 @@ class DataProcessor:
     def setup_models(self):
         """Build the device engines lazily."""
         if self.asr_engine is None:
-            if self.config.get("mesh_shape"):
-                raise NotImplementedError(
-                    "mesh_shape: device meshes are not ported yet "
-                    "(ROADMAP.md, Queue 1: parallel/)")
             from audio_processor_tpu_torch.pipeline.asr_engine import (
                 ASREngine,
             )
 
-            self.asr_engine = ASREngine(self.config, device=self.device)
+            if self.mesh is None and self.config.get("mesh_shape"):
+                from audio_processor_tpu_torch.parallel.multi_device import (
+                    MultiDeviceManager,
+                )
+
+                self.mesh = MultiDeviceManager(
+                    self.config, device=self.device).mesh
+            self.asr_engine = ASREngine(self.config, device=self.device,
+                                        mesh=self.mesh)
         if self.sentiment_analyzer is None:
             from audio_processor_tpu_torch.pipeline.sentiment import (
                 SentimentAnalyzer,
@@ -1054,7 +1031,14 @@ class DataProcessor:
     # ------------------------------------------------------------------
     def run(self) -> int:
         logger.info("Starting audio processing on %s", self.device)
-        refuse_multi_process()
+        # A launch of several processes is joined here if the caller has
+        # not (a no-op otherwise), so no process of it runs every call.
+        from audio_processor_tpu_torch.parallel.distributed import (
+            initialize_distributed, owns_call, process_count, process_index,
+        )
+
+        initialize_distributed(
+            backend="gloo" if self.device.type == "cpu" else None)
         self.setup_models()
         input_dir = Path(self.config.get("input_folder", "./input"))
         if not input_dir.exists():
@@ -1062,6 +1046,16 @@ class DataProcessor:
                 f"Input directory {input_dir} does not exist")
         files = self.file_scanner.scan_files_parallel(input_dir)
         logger.info("Found %d valid audio files", len(files))
+        # Under several processes each keeps the calls it owns by call-id
+        # hash (parallel/distributed.owns_call): decode, device work, DB
+        # writes, markers and reports are sharded with no coordination
+        # beyond the hash, which stays stable across sweeps.
+        if process_count() > 1:
+            owned = [f for f in files if owns_call(f.stem)]
+            logger.info("Multi-process shard: process %d/%d owns %d/%d "
+                        "calls", process_index(), process_count(),
+                        len(owned), len(files))
+            files = owned
         # Run every chunk shape once OUTSIDE the timeout-bounded batch
         # loop (first-use costs must not read as a hung device).
         warmup = self.config.get("batch_warmup", True)

@@ -8,6 +8,15 @@ one device (``FinetuneConfig.device``, the card unless the caller asks
 for the CPU). The resume point is a ``torch.save`` of the model's and
 the optimizer's state dicts and the step, restored bitwise.
 
+With ``mesh_shape`` ({data, seq, model}) the run goes under a launcher of
+data x seq x model processes (``torchrun --nproc-per-node N -m
+audio_processor_tpu_torch.training.finetune cfg.yaml``), one device each
+(``cuda:<LOCAL_RANK>``). Every rank draws the same global batch and
+decodes only its rows of it; ``zero1`` partitions the Adam moments over
+'data'. The resume point keeps the single-device format (gathered on
+rank 0 before the save, sliced again on a resume), and only the primary
+rank writes checkpoints and logs metrics.
+
 Usage:
     from audio_processor_tpu_torch.training.finetune import (
         FinetuneConfig, finetune)
@@ -35,8 +44,8 @@ from audio_processor_tpu_torch.models.wav2vec2bert import (
     W2VBertConfig, Wav2Vec2Bert, build_synthetic,
 )
 from audio_processor_tpu_torch.training.train_step import (
-    SpecAugment, TrainState, ctc_loss, init_state, make_optimizer,
-    make_train_step, refuse_sharding,
+    SpecAugment, TrainState, ctc_loss, gather_train_state, init_state,
+    make_optimizer, make_train_step, scatter_train_state,
 )
 from audio_processor_tpu_torch.utils.metrics import cer, wer
 
@@ -57,8 +66,8 @@ class FinetuneConfig:
     max_audio_sec: float = 25.0
     sample_rate: int = 16000
     checkpoint_every: int = 500
-    mesh_shape: Optional[dict] = None   # refused: not ported yet
-    zero1: bool = False                 # refused: not ported yet
+    mesh_shape: Optional[dict] = None   # {data, seq, model} processes
+    zero1: bool = False                 # Adam moments split over 'data'
     seed: int = 0
     # Evaluation: greedy-decode WER/CER over a held-out manifest
     # (utils/metrics.py); 0 = only after the final step.
@@ -99,18 +108,19 @@ def encode_text(text: str, vocab: CTCVocab) -> List[int]:
 
 
 def _make_batch(sel: List[dict], cfg: FinetuneConfig,
-                vocab: CTCVocab) -> dict:
-    """Featurize + label-encode ``len(sel) <= batch_size`` manifest rows
-    into one padded batch on ``cfg.device`` (a short final eval batch
-    zero-pads the batch dim, as the JAX package's does): features
-    [B, T, 160] and feature_mask [B, T] float32, labels [B, N] int64,
-    label_mask [B, N] float32."""
+                vocab: CTCVocab, rows: Optional[int] = None,
+                device: Optional[torch.device] = None) -> dict:
+    """Featurize + label-encode ``len(sel) <= rows`` manifest rows (rows
+    defaults to batch_size) into one padded batch on ``device`` (default
+    ``cfg.device``; a short final eval batch zero-pads the batch dim, as
+    the JAX package's does): features [B, T, 160] and feature_mask [B, T]
+    float32, labels [B, N] int64, label_mask [B, N] float32."""
     from audio_processor_tpu_torch.dsp.fbank import log_mel_frontend
     from audio_processor_tpu_torch.dsp.resample import resample_np
     from audio_processor_tpu_torch.io.decode import load_audio
 
     T = int(cfg.max_audio_sec * cfg.sample_rate)
-    B = cfg.batch_size
+    B = rows or cfg.batch_size
     audio = np.zeros((B, T), np.float32)
     lengths = np.zeros((B,), np.int64)
     labels_list = [encode_text(row["text"], vocab) for row in sel]
@@ -123,7 +133,7 @@ def _make_batch(sel: List[dict], cfg: FinetuneConfig,
         n = min(mono.shape[0], T)
         audio[i, :n] = mono[:n]
         lengths[i] = n
-    dev = torch.device(cfg.device)
+    dev = device or torch.device(cfg.device)
     feats, mask = log_mel_frontend(torch.from_numpy(audio).to(dev),
                                    torch.from_numpy(lengths).to(dev))
     max_lab = max(1, max((len(l) for l in labels_list), default=1))
@@ -141,16 +151,24 @@ def _make_batch(sel: List[dict], cfg: FinetuneConfig,
 
 
 def batches(rows: List[dict], cfg: FinetuneConfig, vocab: CTCVocab,
-            rng: np.random.Generator) -> Iterator[dict]:
+            rng: np.random.Generator, shard: Tuple[int, int] = (0, 1),
+            device: Optional[torch.device] = None) -> Iterator[dict]:
     """Infinite shuffled stream of padded feature/label batches (the
-    JAX package's order for the same ``rng``)."""
+    JAX package's order for the same ``rng``). With ``shard`` = (index,
+    count), each global batch's rows split into ``count`` equal parts and
+    this stream decodes part ``index`` alone."""
+    index, count = shard
+    if cfg.batch_size % count:
+        raise ValueError(f"batch_size {cfg.batch_size} does not split "
+                         f"over data={count}")
+    n = cfg.batch_size // count
     while True:
         order = rng.permutation(len(rows))
         for start in range(0, len(rows) - cfg.batch_size + 1,
                            cfg.batch_size):
-            yield _make_batch([rows[i]
-                               for i in order[start:start + cfg.batch_size]],
-                              cfg, vocab)
+            sel = [rows[i] for i in order[start:start + cfg.batch_size]]
+            yield _make_batch(sel[index * n:(index + 1) * n], cfg, vocab,
+                              rows=n, device=device)
 
 
 def _default_dtype(device: torch.device) -> torch.dtype:
@@ -159,20 +177,23 @@ def _default_dtype(device: torch.device) -> torch.dtype:
 
 @torch.inference_mode()
 def evaluate(model: Wav2Vec2Bert, vocab: CTCVocab, rows: List[dict],
-             cfg: FinetuneConfig, dtype: Optional[torch.dtype] = None
-             ) -> dict:
+             cfg: FinetuneConfig, dtype: Optional[torch.dtype] = None,
+             device: Optional[torch.device] = None) -> dict:
     """One pass over ``rows``: greedy CTC decode -> corpus WER/CER +
     mean CTC loss over the full batches (the zero-padded rows of a short
     batch would skew it). The attention is the plain ``"xla"`` path, as
-    in the JAX package's eval; the loss reuses the decode's logits."""
-    dtype = dtype or _default_dtype(torch.device(cfg.device))
+    in the JAX package's eval; the loss reuses the decode's logits. A
+    sharded model evaluates every row on every rank (its forward runs
+    collectives over 'model' and 'seq')."""
+    device = device or torch.device(cfg.device)
+    dtype = dtype or _default_dtype(device)
     refs: List[str] = []
     hyps: List[str] = []
     losses: List[float] = []
     B = cfg.batch_size
     for start in range(0, len(rows), B):
         sel = rows[start:start + B]
-        batch = _make_batch(sel, cfg, vocab)
+        batch = _make_batch(sel, cfg, vocab, device=device)
         mask = batch["feature_mask"]
         logits = model(batch["features"], mask.bool(), dtype=dtype,
                        attention_impl="xla")
@@ -201,26 +222,59 @@ def _state_dir(output_dir) -> Path:
 def save_train_state(state: TrainState, output_dir) -> Path:
     """Full-fidelity resume point: the model's and the optimizer's state
     dicts (params, both Adam moments) and the step, written to a temp
-    file and renamed, so a crash mid-write leaves the last one whole."""
+    file and renamed, so a crash mid-write leaves the last one whole.
+    Under a mesh every rank calls it; the state is gathered into the
+    single-device format and rank 0 writes it."""
     path = _state_dir(output_dir)
+    blob = gather_train_state(state)
+    if blob is None:
+        return path
     path.mkdir(parents=True, exist_ok=True)
     tmp = path / (STATE_FILE + ".tmp")
-    torch.save({"model": state.model.state_dict(),
-                "optimizer": state.optimizer.state_dict(),
-                "step": state.step}, tmp)
+    torch.save(blob, tmp)
     os.replace(tmp, path / STATE_FILE)
     return path
 
 
 def load_train_state(state: TrainState, output_dir) -> TrainState:
     """Restore params, Adam moments and step bitwise into ``state``
-    (built by ``init_state`` over a model of the same config)."""
+    (built by ``init_state`` over a model of the same config; under a
+    mesh each rank keeps its slices and partition)."""
     blob = torch.load(_state_dir(output_dir) / STATE_FILE,
                       map_location="cpu", weights_only=True)
+    if state.mesh is not None:
+        return scatter_train_state(state, blob)
     state.model.load_state_dict(blob["model"])
     state.optimizer.load_state_dict(blob["optimizer"])
     state.step = int(blob["step"])
     return state
+
+
+def _mesh_of(cfg: FinetuneConfig):
+    """The process mesh ``mesh_shape`` asks for (None without one). A
+    shape of several processes needs a launch of that many, with the
+    process group initialised (``main`` does it)."""
+    if not cfg.mesh_shape:
+        return None
+    import torch.distributed as dist
+
+    from audio_processor_tpu_torch.parallel.mesh import make_mesh
+
+    shape = cfg.mesh_shape
+    model, seq = int(shape.get("model", 1)), int(shape.get("seq", 1))
+    data = int(shape.get("data") or 0) or None
+    n = (data or 1) * model * seq
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if data is None:
+        data, n = world // (model * seq), world
+    if n == world == 1:
+        return None
+    if n != world:
+        raise ValueError(
+            f"mesh_shape {shape} needs {n} processes, and this launch has "
+            f"{world}: run it under torchrun --nproc-per-node {n}")
+    return make_mesh(data=data, model=model, seq=seq,
+                     device=torch.device(cfg.device).type)
 
 
 def _load_model(cfg: FinetuneConfig, device: torch.device,
@@ -263,13 +317,20 @@ def finetune(cfg: FinetuneConfig, model_cfg: Optional[W2VBertConfig] = None,
     and ``opt_s`` (host clock) and ``frames`` (the batch's valid
     frames), and the step's gradients are still in the parameters'
     ``.grad``."""
-    if cfg.mesh_shape or cfg.zero1:
-        refuse_sharding("mesh_shape" if cfg.mesh_shape else "zero1")
     device = torch.device(cfg.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("FinetuneConfig.device is cuda but CUDA is not "
                            "available; pass device='cpu' to train on the "
                            "CPU")
+    mesh = _mesh_of(cfg)
+    primary = True
+    if mesh is not None:
+        from audio_processor_tpu_torch.parallel.distributed import (
+            is_primary_host,
+        )
+
+        device = mesh.local_device
+        primary = is_primary_host()
     if model is None:
         model, vocab = _load_model(cfg, device, model_cfg, vocab)
     else:
@@ -283,9 +344,10 @@ def finetune(cfg: FinetuneConfig, model_cfg: Optional[W2VBertConfig] = None,
         augment = SpecAugment(cfg.num_time_masks, cfg.time_mask_span,
                               cfg.num_freq_masks, cfg.freq_mask_span)
     state = init_state(model, make_optimizer(cfg.learning_rate,
-                                             cfg.weight_decay))
+                                             cfg.weight_decay),
+                       mesh=mesh, zero1=bool(cfg.zero1))
     step_fn = make_train_step(dtype=dtype, augment=augment,
-                              augment_seed=cfg.seed + 1)
+                              augment_seed=cfg.seed + 1, mesh=state.mesh)
 
     start_step = 0
     if cfg.resume and (_state_dir(cfg.output_dir) / STATE_FILE).exists():
@@ -301,13 +363,18 @@ def finetune(cfg: FinetuneConfig, model_cfg: Optional[W2VBertConfig] = None,
     eval_rows = load_manifest(cfg.eval_manifest) if cfg.eval_manifest \
         else []
     rng = np.random.default_rng(cfg.seed)
-    stream = batches(rows, cfg, vocab, rng)
+    shard = (0, 1) if mesh is None else (mesh.coordinate("data"),
+                                         mesh.axis_size("data"))
+    stream = batches(rows, cfg, vocab, rng, shard=shard, device=device)
 
     def run_eval(step):
-        metrics = evaluate(model, vocab, eval_rows, cfg, dtype=dtype)
-        logger.info("eval @ step %d: WER %.4f CER %.4f loss %.4f "
-                    "(%d utts)", step, metrics["wer"], metrics["cer"],
-                    metrics["loss"], metrics["num_utterances"])
+        metrics = evaluate(model, vocab, eval_rows, cfg, dtype=dtype,
+                           device=device)
+        if primary:
+                logger.info("eval @ step %d: WER %.4f CER %.4f loss %.4f "
+                            "(%d utts)", step, metrics["wer"],
+                            metrics["cer"], metrics["loss"],
+                            metrics["num_utterances"])
         return metrics
 
     losses: List[float] = []
@@ -325,11 +392,12 @@ def finetune(cfg: FinetuneConfig, model_cfg: Optional[W2VBertConfig] = None,
         if step % 10 == 0 or step == cfg.num_steps - 1:
             loss_val = float(loss)
             losses.append(loss_val)
-            logger.info("step %d loss %.4f", step, loss_val)
+            if primary:
+                logger.info("step %d loss %.4f", step, loss_val)
         if on_step is not None:
             on_step(step, state, loss, times)
         if cfg.checkpoint_every and (step + 1) % cfg.checkpoint_every == 0:
-            _save(model, vocab, cfg.output_dir, step + 1)
+            _save(model, vocab, cfg.output_dir, step + 1, mesh=mesh)
             save_train_state(state, cfg.output_dir)
         if eval_rows and cfg.eval_every and \
                 (step + 1) % cfg.eval_every == 0:
@@ -337,7 +405,8 @@ def finetune(cfg: FinetuneConfig, model_cfg: Optional[W2VBertConfig] = None,
     save_train_state(state, cfg.output_dir)
     if eval_rows:
         last_eval = run_eval(cfg.num_steps)
-    _save(model, vocab, cfg.output_dir, cfg.num_steps, metrics=last_eval)
+    _save(model, vocab, cfg.output_dir, cfg.num_steps, metrics=last_eval,
+          mesh=mesh)
     return model, losses
 
 
@@ -366,6 +435,12 @@ def main(argv=None) -> int:
     cfg = FinetuneConfig(**raw)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(message)s")
+    from audio_processor_tpu_torch.parallel.distributed import (
+        initialize_distributed,
+    )
+
+    initialize_distributed(
+        backend="gloo" if torch.device(cfg.device).type == "cpu" else None)
     _, losses = finetune(cfg)
     logger.info("done: %d steps, final loss %.4f", len(losses),
                 losses[-1] if losses else float("nan"))
@@ -373,19 +448,32 @@ def main(argv=None) -> int:
 
 
 def _save(model: Wav2Vec2Bert, vocab: CTCVocab, output_dir, step: int,
-          metrics: Optional[dict] = None) -> None:
+          metrics: Optional[dict] = None, mesh=None) -> None:
     """Params-only checkpoint in ``output_dir/step_<step>/`` (the port's
     ``checkpoint.save_params`` layout) with the config, vocab, step and
-    eval metrics in its metadata.json. A failed write is a warning."""
+    eval metrics in its metadata.json. A failed write is a warning. Under
+    a mesh every rank calls it (the tensor-parallel slices are gathered)
+    and the primary rank writes."""
     from audio_processor_tpu_torch.models.checkpoint import save_params
 
+    sd = model.state_dict()
+    if mesh is not None:
+        from audio_processor_tpu_torch.parallel.distributed import (
+            is_primary_host,
+        )
+        from audio_processor_tpu_torch.parallel.mesh import gather_params
+
+        sd = gather_params(model, mesh) if mesh.axis_size("model") > 1 \
+            else sd
+        if not is_primary_host():
+            return
     out = Path(output_dir) / f"step_{step}"
     meta = {"config": dataclasses.asdict(model.cfg),
             "vocab": vocab.vocab, "step": step}
     if metrics:
         meta["eval"] = metrics
     try:
-        save_params(model.state_dict(), out, metadata=meta)
+        save_params(sd, out, metadata=meta)
         logger.info("checkpoint saved to %s", out)
     except OSError as e:
         logger.warning("checkpoint save failed: %s", e)

@@ -139,10 +139,35 @@ Phases, each of which fails the run (non-zero exit) on any error:
    the median step wall over steps 1-5 split into batch prep,
    forward+backward and optimizer, training RTFx, valid and padded
    frames per second, the model-FLOP share of bf16 peak, peak memory as
-   a share of the card, and the state's save and restore seconds.
+   a share of the card, and the state's save and restore seconds;
+11. multi-process and sharded, after this process frees phases 5-10's
+   models. Processes are this script's rank workers (parallel/launch.py:
+   started together, killed together on a failure or a time-out), with
+   NCCL when each rank has a card and gloo, named and printed, where they
+   share the one card. 11a: ``DataProcessor.run`` over phase 5's 8 calls
+   in 2 processes: each process's markers are its ``owns_call`` share,
+   the shares disjoint and covering, the rows phase 5's with ids equal on
+   every frame clear of a near tie in both runs, flash_rel launches = 24
+   x each process's batches; prints the e2e RTFx beside phase 5's. 11b:
+   ``ASREngine`` over a ``data: 2`` mesh (two cards, else both replicas
+   on cuda:0) against one replica on the same 25 s chunks: ids equal off
+   near ties, each replica launching the kernel, wall per 16-chunk slice
+   of each. 11c: fine-tuning under ``mesh_shape: {data: 2}`` with ZeRO-1
+   from phase 7's HF directory (full width, 24 layers, bf16, remat), 2
+   steps on a global batch of 8 x 25 s, losses within 2e-3 of one
+   process; the resume point consolidated on rank 0 loads into one
+   process and a 0-step resume is bitwise; prints both step walls, the
+   gradient all-reduce's bytes and time, each rank's peak memory. 11d:
+   tensor parallel (model=2), sequence parallel (seq=2) and GPipe (2
+   stages x 4 microbatches) at world 2, fp32, full width with 4 layers,
+   one step each against one process on this card (loss, params, the
+   pipelined forward). 11e: ``entry()`` at the full geometry (24
+   flash_rel launches) and ``dryrun_multichip(2)``. 11f: the device
+   ``resample`` against ``resample_np`` (8, 44.1, 48 kHz to 16 kHz).
 
 Kernel launch counts are set to 0 just before each of the paths 5, 5b,
-6, 7, 7c, 8 and 10, and after phase 9's warmup, and read just after. The
+6, 7, 7c, 8, 10, 11a (in each process) and 11e, and after phase 9's
+warmup, and read just after; 11b counts each replica's launches. The
 second-to-last line is the kernels' JSON record (per kernel: launches,
 error, ms, plain ms, the bound computed from the timed inputs and what
 sets it, and the library call's ms or null); the last line is ``{"ok": true, "device": {...}}``. Imports
@@ -790,6 +815,9 @@ def main_path(seed: int, impl: str, n_calls: int, n_8k: int) -> dict:
             wall_s = time.perf_counter() - t0
             counts = _launches()
             stats = dict(proc.stats)
+            dispatches, warmed = engine.dispatches, set(engine._warmed)
+            spy = (_untimed_ids(proc, (root / "input").glob("*.wav"))
+                   if impl == "auto" else None)
         finally:
             proc.close()
         (csv_path,) = (root / "output").glob("optimized_results_*.csv")
@@ -803,12 +831,12 @@ def main_path(seed: int, impl: str, n_calls: int, n_8k: int) -> dict:
         f", vocab {mcfg.vocab_size}; setup {setup_s:.2f} s")
     shapes = sorted(  # (encoder rows, frames) per (bucket, chunks) shape
         (3 * n, -(-max_num_frames(b) // 2 // 256) * 256)
-        for b, n in engine._warmed)
+        for b, n in warmed)
     log(f"{tag} files succeeded {succeeded}/{n_calls}, chunk rows "
-        f"{len(rows)}, batches dispatched {engine.dispatches} (warmup "
+        f"{len(rows)}, batches dispatched {dispatches} (warmup "
         f"included), encoder batch shapes {shapes}")
-    log(f"{tag} {resolved} launches {launches} = 24 x {engine.dispatches}"
-        f": {launches == mcfg.num_hidden_layers * engine.dispatches}; "
+    log(f"{tag} {resolved} launches {launches} = 24 x {dispatches}"
+        f": {launches == mcfg.num_hidden_layers * dispatches}; "
         f"all launch counts {counts}")
     log(f"{tag} wall {wall_s:.2f} s for {audio_s:.0f} s of audio "
         f"(warmup included): RTFx {audio_s / wall_s:.1f}")
@@ -821,16 +849,18 @@ def main_path(seed: int, impl: str, n_calls: int, n_8k: int) -> dict:
     assert per_file == {f"call-{i:02d}.wav": 5
                         for i in range(n_calls)}, per_file
     assert not any(r["error"] for r in rows)
-    assert (400000, 16) in engine._warmed      # full 48 x 1280 batches ran
+    assert (400000, 16) in warmed      # full 48 x 1280 batches ran
     # The kernel phase checked the kernel at every shape this run gave it.
     checked = MAIN_SHAPES if resolved == "flash_rel" else FLASH_SHAPES
     assert set(shapes) <= set(checked), shapes
     assert launches > 0 and launches == mcfg.num_hidden_layers \
-        * engine.dispatches
+        * dispatches
     assert all(n == 0 for name, n in counts.items() if name != kernel), \
         counts
     assert "jax" not in sys.modules
-    return {"launches": launches, "other": counts[other]}
+    return {"launches": launches, "other": counts[other],
+            "rows": spy and spy.rows,
+            "rtfx": audio_s / wall_s}
 
 
 def ablation_path(seed: int) -> dict:
@@ -2401,10 +2431,664 @@ def finetune_path(seed: int, work: Path, models: Path) -> dict:
     return {"launches": counts}
 
 
+# ---------------------------------------------------------------- phase 11
+# Phase 11d (fp32, TF32 off): the loss within 1e-4 relative of the
+# one-process step; params within 1e-4 of their leaf's max |p| (at least
+# 1e-4 absolute: the zero-initialised biases); AdamW at a learning rate of
+# 1e-5, so that an element whose gradient sits at the noise floor, which
+# Adam moves by up to lr either way, stays inside it; and each update
+# (param after minus before) within lr / 100 of the one-process update on
+# all but 0.1% of the elements. The pipelined forward within 1e-4.
+SHARD_LOSS_RTOL, SHARD_PARAM_RTOL, SHARD_LR = 1e-4, 1e-4, 1e-5
+DDP_LOSS_RTOL = 2e-3   # phase 11c, bf16: losses against one process
+# Phase 11c, bf16: the consolidated moments against one process's, as
+# ||got - want|| / ||want||, over all parameters and per parameter whose
+# moment's rms is at least DDP_MOMENT_LEAF of the largest (below it sit
+# gradients that are zero in exact arithmetic, e.g. key biases).
+DDP_MOMENT_RTOL, DDP_MOMENT_LEAF = 5e-2, 1e-2
+RESAMPLE_ATOL = 1e-5   # phase 11f, against resample_np (float64 sums)
+# Phase 11d's shapes: the full width at 4 layers, 4 rows of 256 frames.
+SHARD_LAYERS, SHARD_B, SHARD_T, SHARD_N = 4, 4, 256, 20
+
+
+def _backend(world: int) -> str:
+    """NCCL when each rank has a card; gloo, named here, where they
+    share one (NCCL refuses two ranks on one device)."""
+    return "nccl" if torch.cuda.device_count() >= world else "gloo"
+
+
+def _ranks(phase: str, work: Path, world: int = 2,
+           timeout_s: float = 300.0, **extra) -> list:
+    """Run ``phase``'s rank worker in ``world`` processes of this script
+    and return each rank's JSON result. Every rank is killed if the group
+    fails or overruns."""
+    from audio_processor_tpu_torch.parallel import launch
+
+    work.mkdir(parents=True, exist_ok=True)
+    init = launch.file_init_method(work)
+    spec = json.dumps({"init": init, "work": str(work), **extra})
+    t0 = time.perf_counter()
+    outs = launch.run_ranks(
+        lambda r: [sys.executable, str(Path(__file__).resolve()),
+                   "--rank-worker", phase, "--rank", str(r), "--world",
+                   str(world), "--spec", spec], world, timeout_s,
+        cwd=str(REPO))
+    wall = time.perf_counter() - t0
+    for r, out in enumerate(outs):
+        for line in out.strip().splitlines()[-6:]:
+            log(f"  [rank {r}] {line}")
+    res = [json.loads((work / f"rank{r}.json").read_text())
+           for r in range(world)]
+    for r in res:
+        r["launch_wall_s"] = wall
+    return res
+
+
+def _join(spec: dict, rank: int, world: int) -> torch.device:
+    from audio_processor_tpu_torch.parallel.distributed import (
+        initialize_distributed, local_device,
+    )
+
+    initialize_distributed(spec["init"], num_processes=world,
+                           process_id=rank, backend=_backend(world),
+                           timeout_s=600)
+    dev = local_device("cuda")
+    torch.cuda.set_device(dev)
+    return dev
+
+
+class _IdSpy:
+    """The greedy ids of each (file, chunk, view)'s valid frames and
+    whether each frame's top-2 logit margin exceeds MARGIN, from the
+    engine's own dispatches: a forward hook on each replica keeps the
+    margins on the device, and the engine's fetch pairs them with the
+    rows it decodes (warmup rows dropped)."""
+
+    def __init__(self, engine):
+        import collections
+
+        self.margins = collections.deque()
+        self.rows = {}
+        for m in engine.replicas:
+            m.register_forward_hook(self._hook)
+        real = engine._fetch_pending
+
+        def fetch(chunks, pending, results):
+            for sub_chunks, out, err in pending:
+                if err is not None:
+                    continue
+                parts = out if isinstance(out, list) else [out]
+                ids = torch.cat([p[0].cpu() for p in parts]).numpy()
+                mask = torch.cat([p[1].cpu() for p in parts]).numpy()
+                clear = torch.cat([self.margins.popleft().cpu()
+                                   for _ in parts]).numpy()
+                for j, c in enumerate(sub_chunks):
+                    if c.file_name == "warmup.wav":
+                        continue
+                    for v in range(3):
+                        ok = mask[3 * j + v].astype(bool)
+                        self.rows[f"{c.file_name}|{c.chunk_idx}|{v}"] = (
+                            ids[3 * j + v][ok], clear[3 * j + v][ok])
+            return real(chunks, pending, results)
+
+        engine._fetch_pending = fetch
+
+    def _hook(self, module, args, output):
+        top2 = output.topk(2, dim=-1).values
+        self.margins.append((top2[..., 0] - top2[..., 1]) > MARGIN)
+
+    def save(self, path: Path) -> None:
+        np.savez(path, **{f"{k}|ids": v[0] for k, v in self.rows.items()},
+                 **{f"{k}|clear": v[1] for k, v in self.rows.items()})
+
+
+def _untimed_ids(proc, files) -> _IdSpy:
+    """The ids and clear frames of ``files``' chunks, from one more pass
+    of the processor's engine after its timed run: the spy's hook and
+    its copies to the host stay out of the timed wall. Chunked as the
+    processor chunks (``prepare_and_split``), one call to the engine."""
+    from audio_processor_tpu_torch.io.decode import load_audio
+    from audio_processor_tpu_torch.pipeline.chunker import prepare_and_split
+
+    spy = _IdSpy(proc.asr_engine)
+    chunks = []
+    for f in sorted(files):
+        wave, sr = load_audio(f)
+        chunks += prepare_and_split(wave, sr, f.name, proc.config)[2]
+    proc.asr_engine.transcribe_chunks(chunks)
+    return spy
+
+
+def _load_rows(path: Path) -> dict:
+    with np.load(path) as z:
+        keys = {k.rsplit("|", 1)[0] for k in z.files}
+        return {k: (z[f"{k}|ids"], z[f"{k}|clear"]) for k in keys}
+
+
+def _compare_ids(got: dict, want: dict, tag: str) -> tuple:
+    """Ids equal on every frame clear in both runs; the row sets equal.
+    Returns (clear frames compared, frames)."""
+    assert set(got) == set(want), (tag, sorted(set(got) ^ set(want))[:6])
+    n_clear = n = 0
+    for key, (ids, clear) in want.items():
+        ids2, clear2 = got[key]
+        assert ids.shape == ids2.shape, (tag, key)
+        both = clear & clear2
+        bad = int((ids[both] != ids2[both]).sum())
+        assert bad == 0, f"{tag} {key}: {bad} clear frames differ"
+        n_clear += int(both.sum())
+        n += ids.size
+    return n_clear, n
+
+
+def _batch_config(root: Path, out: str) -> dict:
+    """Phase 5's configuration."""
+    return {"input_folder": str(root / "input"),
+            "output_folder": str(root / out),
+            "logs_folder": str(root / "logs"),
+            "temp_dir": str(root / f"tmp_{out}"),
+            "chunk_batch_size": 16, "enable_mixed_precision": True,
+            "save_csv_results": True}
+
+
+def _worker_11a(spec: dict, rank: int, world: int) -> dict:
+    """One process of 11a: DataProcessor.run over the calls it owns."""
+    import torch.distributed as dist
+
+    from audio_processor_tpu_torch.config import PipelineConfig
+    from audio_processor_tpu_torch.parallel.distributed import owns_call
+    from audio_processor_tpu_torch.pipeline.engine import DataProcessor
+
+    dev = _join(spec, rank, world)
+    root = Path(spec["work"])
+    proc = DataProcessor(PipelineConfig.from_dict(
+        _batch_config(root, f"out_{rank}")), device=dev)
+    try:
+        proc.setup_models()
+        _reset_launches()
+        proc.asr_engine.dispatches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = proc.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        stats = dict(proc.stats)
+        dispatches, launches = proc.asr_engine.dispatches, _launches()
+        _untimed_ids(proc, [f for f in (root / "input").glob("*.wav")
+                            if owns_call(f.stem)]
+                     ).save(root / f"ids_{rank}.npz")
+    finally:
+        proc.close()
+    marks = sorted(p.stem for p in (root / f"out_{rank}" /
+                                    "processed_markers").glob("*.done"))
+    return {"backend": dist.get_backend(), "device": str(dev),
+            "succeeded": n, "errors": stats["errors"], "markers": marks,
+            "dispatches": dispatches, "launches": launches, "wall_s": wall}
+
+
+def multi_process_batch(seed: int, work: Path, phase5: dict) -> dict:
+    """11a: phase 5's 8 calls through ``DataProcessor.run`` in 2
+    processes (each one owns its calls by call-id hash)."""
+    import zlib
+
+    tag = "[11a multi-process]"
+    audio_s = _write_calls(work / "input", seed, 8, 100.0, 3)
+    res = _ranks("11a", work)
+    stems = [f"call-{i:02d}" for i in range(8)]
+    shares = [set(r["markers"]) for r in res]
+    for r, share in enumerate(shares):
+        want = {s for s in stems if zlib.crc32(s.encode()) % 2 == r}
+        assert share == want, (r, share, want)
+        assert res[r]["succeeded"] == len(want) and res[r]["errors"] == 0
+        launches = res[r]["launches"]["flash_rel_attention"]
+        assert launches == 24 * res[r]["dispatches"] > 0, res[r]
+    assert not shares[0] & shares[1] and shares[0] | shares[1] == set(stems)
+    rows = {}
+    for r in range(2):
+        rows.update(_load_rows(work / f"ids_{r}.npz"))
+    n_clear, n = _compare_ids(rows, phase5["rows"], tag)
+    walls = [r["wall_s"] for r in res]
+    log(f"{tag} backend {res[0]['backend']} ({torch.cuda.device_count()} "
+        f"card(s)), devices {[r['device'] for r in res]}; owned "
+        f"{[sorted(s) for s in shares]}; batches "
+        f"{[r['dispatches'] for r in res]}, flash_rel launches "
+        f"{[r['launches']['flash_rel_attention'] for r in res]}")
+    log(f"{tag} rows {len(rows)} = phase 5's; ids equal on {n_clear}/{n} "
+        f"frames clear in both runs; run walls {walls} s (warmup "
+        f"included), e2e RTFx {audio_s / max(walls):.1f} (phase 5: "
+        f"{phase5['rtfx']:.1f}); launch wall {res[0]['launch_wall_s']:.1f} s")
+    return {"launches": sum(r["launches"]["flash_rel_attention"]
+                            for r in res)}
+
+
+def replica_engine(seed: int, work: Path) -> dict:
+    """11b: ``ASREngine`` over a ``data: 2`` mesh (two cards if present,
+    else both replicas on cuda:0) against the one-replica engine on the
+    same chunks (a copy of the same weights): ids equal off near ties,
+    every replica launching the kernel, wall per batch of each."""
+    import copy
+
+    from audio_processor_tpu_torch.config import PipelineConfig
+    from audio_processor_tpu_torch.io.decode import load_audio
+    from audio_processor_tpu_torch.models.flash_rel_attention import (
+        flash_rel_attention,
+    )
+    from audio_processor_tpu_torch.parallel.mesh import make_mesh
+    from audio_processor_tpu_torch.pipeline.asr_engine import ASREngine
+    from audio_processor_tpu_torch.pipeline.chunker import split_audio
+
+    tag = "[11b replicas]"
+    cards = torch.cuda.device_count()
+    devices = ["cuda:0", "cuda:1"] if cards >= 2 else ["cuda:0"] * 2
+    cfg = PipelineConfig.from_dict({"chunk_batch_size": 16,
+                                    "enable_mixed_precision": True,
+                                    "mesh_shape": {"data": 2}})
+    multi = ASREngine(cfg, device="cuda",
+                      mesh=make_mesh(data=2, devices=devices))
+    one = ASREngine(cfg, device="cuda", model=copy.deepcopy(multi.model),
+                    vocab=multi.vocab)
+    assert multi.device_chunks == 32 and one.device_chunks == 16
+    assert multi.attention_impl == one.attention_impl == "flash_rel"
+    per_replica = [0, 0]
+    for i, m in enumerate(multi.replicas):
+        m.register_forward_pre_hook(
+            lambda mod, a, i=i: per_replica.__setitem__(
+                i, per_replica[i] - flash_rel_attention.launches))
+        m.register_forward_hook(
+            lambda mod, a, o, i=i: per_replica.__setitem__(
+                i, per_replica[i] + flash_rel_attention.launches))
+    chunks = []
+    for i in range(5):
+        wave, sr = load_audio(work / "input" / f"call-{i:02d}.wav")
+        chunks += [c for c in split_audio(wave, sr, f"c{i}", 25.0, 1.0)
+                   if c.num_samples == 400000][:4]
+    assert len(chunks) == 20
+    for eng in (multi, one):
+        eng.warmup()
+    # Launches and dispatches of the timed passes only (warmup excluded).
+    per_replica[:] = [0, 0]
+    d_rep = list(multi.replica_dispatches)
+    walls = []
+    for eng in (multi, one, multi, one):
+        torch.cuda.synchronize()
+        d0 = eng.dispatches
+        t0 = time.perf_counter()
+        eng.transcribe_chunks(chunks[:16] if eng is one else chunks)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0, eng.dispatches - d0))
+    d_rep = [a - b for a, b in zip(multi.replica_dispatches, d_rep)]
+    launched = list(per_replica)
+    assert d_rep[0] == d_rep[1] > 0, d_rep
+    assert launched == [24 * d for d in d_rep], (launched, d_rep)
+    # The ids from one more, untimed pass of each engine under the spy.
+    spies = [_IdSpy(multi), _IdSpy(one)]
+    multi.transcribe_chunks(chunks)
+    one.transcribe_chunks(chunks[:16])
+    n_clear, n = _compare_ids(
+        {k: v for k, v in spies[0].rows.items() if k in spies[1].rows},
+        spies[1].rows, tag)
+    log(f"{tag} devices {devices}; per-replica flash_rel launches in the "
+        f"timed passes {launched} = 24 x {d_rep} dispatches; ids equal on "
+        f"{n_clear}/{n} clear frames of the 16 shared chunks")
+    log(f"{tag} wall per 16-chunk slice (48 x 1280 rows each): two "
+        f"replicas {walls[0][0] / walls[0][1]:.4f} / "
+        f"{walls[2][0] / walls[2][1]:.4f} s, one replica "
+        f"{walls[1][0] / walls[1][1]:.4f} / {walls[3][0] / walls[3][1]:.4f}"
+        f" s (turns: two, one, two, one)")
+    launches = sum(launched)
+    del multi, one
+    return {"launches": launches}
+
+
+def _worker_11c(spec: dict, rank: int, world: int) -> dict:
+    """One rank of 11c: ``finetune`` under ``mesh_shape: {data: 2}`` with
+    ZeRO-1; then the all-reduce of the gradient's bytes, timed alone."""
+    import torch.distributed as dist
+
+    from audio_processor_tpu_torch.parallel import collectives as coll
+    from audio_processor_tpu_torch.training import finetune as ft
+
+    dev = _join(spec, rank, world)
+    steps = []
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model, _ = ft.finetune(
+        ft.FinetuneConfig(**spec["cfg"]),
+        on_step=lambda step, state, loss, times: steps.append(
+            {"step": step, "loss": float(loss), **times}))
+    peak = torch.cuda.max_memory_allocated(dev)
+    run_s = time.perf_counter() - t0
+    n = sum(p.numel() for p in model.parameters())
+    del model
+    torch.cuda.empty_cache()
+    buf = torch.ones(n, device=dev)
+    coll.all_reduce_(buf, dist.group.WORLD)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for _ in range(2):
+        coll.all_reduce_(buf, dist.group.WORLD)
+    torch.cuda.synchronize(dev)
+    return {"backend": dist.get_backend(), "device": str(dev),
+            "steps": steps, "peak_bytes": peak, "grad_values": n,
+            "all_reduce_s": (time.perf_counter() - t0) / 2,
+            "finetune_s": run_s}
+
+
+def ddp_zero1(seed: int, work: Path, models: Path, train_manifest: Path
+              ) -> None:
+    """11c: data-parallel fine-tuning with ZeRO-1 at world 2 from phase
+    10's HF directory (full width, 24 layers, bf16, remat, SpecAugment),
+    2 steps on a global batch of 8 x 25 s, against one process on the
+    same global batches; the resume point consolidated on rank 0 loads
+    into a one-process state bitwise (a 0-step resume: the sharded run's
+    final params and step, every moment), and its moments agree with the
+    one-process run's within DDP_MOMENT_RTOL."""
+    import dataclasses as dc
+    import gc
+
+    from audio_processor_tpu_torch.training import finetune as ft
+    from audio_processor_tpu_torch.training import train_step as ts
+
+    tag = "[11c ddp+zero1]"
+    base = ft.FinetuneConfig(
+        manifest=str(train_manifest), init_checkpoint=str(models / "asr"),
+        output_dir=str(work / "one"), num_steps=2, checkpoint_every=0,
+        seed=seed, device="cuda")
+    assert (base.batch_size, base.max_audio_sec, base.spec_augment) == (
+        8, 25.0, True)
+    one, last = [], []
+
+    def on_step(step, state, loss, times):
+        one.append({"loss": float(loss), **times})
+        last[:] = [state]
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, _ = ft.finetune(base, on_step=on_step)
+    one_peak = torch.cuda.max_memory_allocated()
+    one_s = time.perf_counter() - t0
+    ref_m = ts.named_moments(last.pop())
+    ref_m = {k: {n: t.cpu() for n, t in ref_m[k].items()}
+             for k in ("exp_avg", "exp_avg_sq")}
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_cfg = dc.replace(base, output_dir=str(work / "mesh"),
+                          mesh_shape={"data": 2}, zero1=True)
+    res = _ranks("11c", work / "ranks", timeout_s=900,
+                 cfg=dc.asdict(mesh_cfg))
+    for r in res:
+        got = [s["loss"] for s in r["steps"]]
+        want = [s["loss"] for s in one]
+        assert len(got) == 2 and all(
+            abs(g - w) <= DDP_LOSS_RTOL * abs(w) for g, w in zip(got, want)), \
+            (got, want)
+    t0 = time.perf_counter()
+    saved = torch.load(work / "mesh" / "step_2" / "params.pt",
+                       map_location="cpu", weights_only=True)
+    model = ft._load_model(base, torch.device("cuda"), None, None)[0]
+    state = ft.load_train_state(ts.init_state(model, ts.make_optimizer()),
+                                work / "mesh")
+    for name, p in model.named_parameters():
+        assert torch.equal(p.detach().cpu(), saved[name]), name
+    mom = ts.named_moments(state)
+    n_params = len(list(model.parameters()))
+    assert state.step == mom["step"] == 2 and len(mom["exp_avg"]) == \
+        n_params, (state.step, len(mom["exp_avg"]))
+    resume_s = time.perf_counter() - t0
+    moment_err = {}
+    for key in ("exp_avg", "exp_avg_sq"):
+        assert set(mom[key]) == set(ref_m[key])
+        per = {}          # name -> (||got - want||^2, ||want||^2, numel)
+        for name, w in ref_m[key].items():
+            w = w.to(mom[key][name].device)
+            per[name] = (float((mom[key][name] - w).double().pow(2).sum()),
+                         float(w.double().pow(2).sum()), w.numel())
+        total = (sum(v[0] for v in per.values())
+                 / sum(v[1] for v in per.values())) ** 0.5
+        rms_max = max((v[1] / v[2]) ** 0.5 for v in per.values())
+        leaves = {n: (d / w) ** 0.5 for n, (d, w, k) in per.items()
+                  if (w / k) ** 0.5 >= DDP_MOMENT_LEAF * rms_max}
+        worst = max(leaves, key=leaves.get)
+        moment_err[key] = (total, len(leaves), worst, leaves[worst])
+        assert total <= DDP_MOMENT_RTOL and leaves[worst] <= \
+            DDP_MOMENT_RTOL, (key, moment_err[key])
+    del model, state, mom, saved, ref_m
+    gc.collect()
+    torch.cuda.empty_cache()
+    wall = lambda s: s["prep_s"] + s["fwd_bwd_s"] + s["opt_s"]  # noqa: E731
+    n = res[0]["grad_values"]
+    ar = res[0]["all_reduce_s"]
+    step_w = [wall(s) for s in res[0]["steps"]]
+    log(f"{tag} backend {res[0]['backend']}, devices "
+        f"{[r['device'] for r in res]}; losses one process "
+        f"{[round(s['loss'], 4) for s in one]}, world 2 "
+        f"{[[round(s['loss'], 4) for s in r['steps']] for r in res]} "
+        f"(within {DDP_LOSS_RTOL:g} relative)")
+    split = [[round(s[k], 4) for k in ("prep_s", "fwd_bwd_s", "opt_s")]
+             for s in res[0]["steps"]]
+    log(f"{tag} step wall one process {[round(wall(s), 4) for s in one]} s;"
+        f" world 2 rank 0 {[round(w, 4) for w in step_w]} s (prep / fwd+bwd"
+        f" / opt {split})")
+    log(f"{tag} gradient all-reduce {n} fp32 values ({4 * n / 1e9:.3f} GB) "
+        f"per step: {ar:.4f} s alone, {ar / step_w[-1]:.3f} of rank 0's "
+        f"last step; peak memory one process {one_peak / 2**30:.2f} GiB, "
+        f"ranks {[round(r['peak_bytes'] / 2**30, 2) for r in res]} GiB; "
+        f"consolidated resume point loads into one process (step 2, "
+        f"{n_params} moment tensors), params bitwise the run's")
+    log(f"{tag} consolidated moments against one process's, "
+        f"||got - want|| / ||want|| (bound {DDP_MOMENT_RTOL:g}): " + "; ".join(
+            f"{k} all {t:.3e}, worst of {n} leaves {w} {e:.3e}"
+            for k, (t, n, w, e) in moment_err.items()))
+    log(f"{tag} walls: one process {one_s:.1f} s (load, 2 steps, state "
+        f"save), ranks {res[0]['launch_wall_s']:.1f} s (of which finetune "
+        f"{[round(r['finetune_s'], 1) for r in res]} s, consolidation and "
+        f"save included), resume check {resume_s:.1f} s")
+
+
+def _worker_11d(spec: dict, rank: int, world: int) -> dict:
+    """One rank of 11d: a tensor-parallel and a sequence-parallel step,
+    then the GPipe forward and step, each from the same weights."""
+    from audio_processor_tpu_torch.models import wav2vec2bert as w2v
+    from audio_processor_tpu_torch.parallel.mesh import (
+        gather_params, make_mesh,
+    )
+    from audio_processor_tpu_torch.parallel.pipeline import (
+        make_pipelined_forward, make_pipelined_train_step, make_stage_mesh,
+        stage_parameter_names,
+    )
+    from audio_processor_tpu_torch.training import train_step as ts
+
+    dev = _join(spec, rank, world)
+    work = Path(spec["work"])
+    cfg = w2v.W2VBertConfig(**spec["model"])
+    weights = torch.load(spec["weights"], map_location=dev)
+    batch = {k: v.to(dev) for k, v in torch.load(spec["batch"]).items()}
+
+    def fresh():
+        model = w2v.Wav2Vec2Bert(cfg).to(dev)
+        model.load_state_dict(weights)
+        return model.train()
+
+    out = {}
+    for name, shape in (("tp", {"model": 2}), ("sp", {"seq": 2})):
+        mesh = make_mesh(world, device="cuda", **shape)
+        state = ts.init_state(fresh(), ts.make_optimizer(SHARD_LR),
+                              mesh=mesh)
+        state, loss = ts.make_train_step(torch.float32, mesh=mesh)(
+            state, batch)
+        full = gather_params(state.model, mesh)
+        if rank == 0:
+            torch.save({k: v.cpu() for k, v in full.items()},
+                       work / f"{name}.pt")
+        out[name] = float(loss)
+        del state, full
+    mesh = make_stage_mesh(world)
+    model = fresh()
+    logits = make_pipelined_forward(cfg, mesh, 4)(
+        model, batch["features"], batch["feature_mask"].bool())
+    state = ts.init_state(model, ts.make_optimizer(SHARD_LR))
+    state, loss = make_pipelined_train_step(cfg, mesh, 4)(state, batch)
+    names = set(stage_parameter_names(model, mesh))
+    torch.save({n: p.detach().cpu() for n, p in model.named_parameters()
+                if n in names}, work / f"pp_{rank}.pt")
+    if rank == 0:
+        torch.save(logits.cpu(), work / "pp_logits.pt")
+    out["pp"] = float(loss)
+    return out
+
+
+def sharded_strategies(seed: int, work: Path) -> None:
+    """11d: tensor parallel (model=2), sequence parallel (seq=2) and GPipe
+    (2 stages x 4 microbatches), each at world 2 in fp32 at the full width
+    (hidden 1024, 16 heads, FFN 4096, conv 31) with 4 layers, one step
+    each against the one-process step on this card."""
+    import dataclasses as dc
+
+    from audio_processor_tpu_torch.models import wav2vec2bert as w2v
+    from audio_processor_tpu_torch.training import train_step as ts
+
+    tag = "[11d tp/sp/pp]"
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = w2v.W2VBertConfig(num_hidden_layers=SHARD_LAYERS)
+    work.mkdir(parents=True, exist_ok=True)
+    model = w2v.build_synthetic(cfg, torch.device("cuda"), seed=seed).train()
+    before = {n: p.detach().cpu().clone() for n, p in
+              model.named_parameters()}
+    torch.save(before, work / "w.pt")
+    rng = np.random.default_rng(seed)
+    fm = np.ones((SHARD_B, SHARD_T), np.float32)
+    fm[1, 200:] = fm[3, 150:] = 0.0
+    batch = {"features": torch.from_numpy(rng.standard_normal(
+                 (SHARD_B, SHARD_T, 160)).astype(np.float32)),
+             "feature_mask": torch.from_numpy(fm),
+             "labels": torch.from_numpy(rng.integers(
+                 1, cfg.vocab_size, (SHARD_B, SHARD_N))),
+             "label_mask": torch.ones(SHARD_B, SHARD_N)}
+    torch.save(batch, work / "batch.pt")
+    res = _ranks("11d", work, timeout_s=600, model=dc.asdict(cfg),
+                 weights=str(work / "w.pt"), batch=str(work / "batch.pt"))
+    gb = {k: v.cuda() for k, v in batch.items()}
+    with torch.no_grad():
+        plain = model(gb["features"], gb["feature_mask"].bool()).cpu()
+    state, loss = ts.train_step(
+        ts.init_state(model, ts.make_optimizer(SHARD_LR)), gb,
+        dtype=torch.float32)
+    ref = {n: p.detach().cpu() for n, p in model.named_parameters()}
+    loss = float(loss)
+    pp = {}
+    for r in range(2):
+        pp.update(torch.load(work / f"pp_{r}.pt"))
+    worst = {}
+    for name, got in (("tp", torch.load(work / "tp.pt")),
+                      ("sp", torch.load(work / "sp.pt")), ("pp", pp)):
+        rel = abs(res[0][name] - loss) / abs(loss)
+        assert rel <= SHARD_LOSS_RTOL and res[0][name] == res[1][name], \
+            (name, res[0][name], res[1][name], loss)
+        assert set(got) == set(ref), name
+        loose = total = 0
+        worst[name] = 0.0
+        for n, want in ref.items():
+            d = (got[n] - want).abs().max().item()
+            tol = SHARD_PARAM_RTOL * max(want.abs().max().item(), 1.0)
+            assert d <= tol, (name, n, d, tol)
+            worst[name] = max(worst[name], d / tol)
+            du = ((got[n] - before[n]) - (want - before[n])).abs()
+            loose += int((du > SHARD_LR / 100).sum())
+            total += du.numel()
+        assert loose <= PARAM_TIGHT_SHARE * total, (name, loose, total)
+        log(f"{tag} {name}: loss {res[0][name]:.6f} vs one process "
+            f"{loss:.6f} (rel {rel:.2e}); params at worst {worst[name]:.3f} "
+            f"of their tolerance; updates beyond lr/100 {loose}/{total}")
+    pp_err = (torch.load(work / "pp_logits.pt") - plain).abs().max().item()
+    assert pp_err <= 1e-4, pp_err
+    log(f"{tag} pipelined forward (2 stages x 4 microbatches) max abs "
+        f"{pp_err:.3e} from the plain forward; width hidden "
+        f"{cfg.hidden_size}, heads {cfg.num_attention_heads}, ffn "
+        f"{cfg.intermediate_size}, conv {cfg.conv_depthwise_kernel_size}, "
+        f"{SHARD_LAYERS} layers, batch {SHARD_B} x {SHARD_T} frames, fp32")
+    del model, state
+
+
+def entry_points() -> dict:
+    """11e: ``entry()`` at the full geometry (24 kernel launches, ids in
+    the vocabulary) and ``dryrun_multichip(2)`` on the card."""
+    from audio_processor_tpu_torch import entry as ent
+
+    tag = "[11e entry]"
+    fn, args = ent.entry()
+    fn(*args)                                   # first use
+    _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids = fn(*args)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = _launches()
+    vocab = args[0].cfg.vocab_size
+    assert counts["flash_rel_attention"] == 24, counts
+    assert ids.shape[0] == 4 and int(ids.min()) >= 0 \
+        and int(ids.max()) < vocab
+    del fn, args
+    torch.cuda.empty_cache()
+    summary = ent.dryrun_multichip(2)
+    assert summary["device"].startswith("cuda")
+    assert summary["backend"] == _backend(2)
+    assert summary["sharded_inference_chunks"] == 4
+    log(f"{tag} entry(): ids {tuple(ids.shape)} in [0, {vocab}), "
+        f"{counts['flash_rel_attention']} flash_rel launches, {ms:.1f} ms "
+        f"(4 x 25 s, bf16); dryrun_multichip(2): {summary}")
+    return {"launches": counts["flash_rel_attention"]}
+
+
+def device_resample(seed: int) -> None:
+    """11f: ``dsp.resample.resample`` on the card against
+    ``resample_np``: 8, 44.1 and 48 kHz to 16 kHz, 2 x 10 s."""
+    from audio_processor_tpu_torch.dsp.resample import resample, resample_np
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for orig in (8000, 44100, 48000):
+        x = (0.3 * rng.standard_normal((2, orig * 10))).astype(np.float32)
+        xc = torch.from_numpy(x).cuda()
+        got = resample(xc, orig, 16000)
+        assert got.is_cuda and got.dtype == torch.float32
+        err = float(np.abs(got.cpu().numpy()
+                           - resample_np(x, orig, 16000)).max())
+        assert err <= RESAMPLE_ATOL, (orig, err)
+        out.append(f"{orig} Hz: max abs {err:.2e}, "
+                   f"{_cuda_ms(lambda: resample(xc, orig, 16000), 10):.3f} ms")
+    log(f"[11f resample] card vs resample_np (tol {RESAMPLE_ATOL:g}): "
+        + "; ".join(out))
+
+
+WORKERS = {"11a": _worker_11a, "11c": _worker_11c, "11d": _worker_11d}
+
+
+def rank_worker(phase: str, rank: int, world: int, spec: dict) -> int:
+    """A rank process of phase 11: runs ``phase``'s worker and leaves its
+    result in the work directory."""
+    import torch.distributed as dist
+
+    logging.basicConfig(level=logging.WARNING, stream=sys.stderr)
+    result = WORKERS[phase](spec, rank, world)
+    (Path(spec["work"]) / f"rank{rank}.json").write_text(json.dumps(result))
+    log(f"{phase} rank {rank}: done")
+    dist.destroy_process_group()
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--rank-worker", help=argparse.SUPPRESS)
+    ap.add_argument("--rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--world", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--spec", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.rank_worker:
+        return rank_worker(args.rank_worker, args.rank, args.world,
+                           json.loads(args.spec))
     logging.basicConfig(level=logging.WARNING, stream=sys.stderr)
     name = card()
     build()
@@ -2431,6 +3115,22 @@ def main() -> int:
         message = message_path(args.seed, Path(tmp) / "run8")
         served = serving_path(args.seed, models)
         tuned = finetune_path(args.seed, Path(tmp) / "run10", models)
+        # Phase 11: free this process's models of phases 5-10 first.
+        import gc
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[11] card memory held by this process before the ranks: "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+            f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved; "
+            f"{smi_line()}")
+        multi = multi_process_batch(args.seed, Path(tmp) / "run11a", rel)
+        replicas = replica_engine(args.seed, Path(tmp) / "run11a")
+        ddp_zero1(args.seed, Path(tmp) / "run11c", models,
+                  Path(tmp) / "run10" / "data" / "train.jsonl")
+        sharded_strategies(args.seed, Path(tmp) / "run11d")
+        entered = entry_points()
+        device_resample(args.seed)
     assert int8["launches"] > 0
     assert "jax" not in sys.modules
     assert not any(m.split(".")[0] == "audio_processor_tpu"
@@ -2461,12 +3161,16 @@ def main() -> int:
         VARIANT_MODES,
     )
 
-    # flash_rel runs on three paths: the batch path (phase 5), the
-    # message path (phase 8, fused and mono dispatches) and the server
-    # (phase 9); fine-tuning (phase 10) runs the plain attention, 0.
+    # flash_rel runs on the batch path (phase 5), the message path (phase
+    # 8, fused and mono dispatches), the server (phase 9), the batch path
+    # in 2 processes (11a), the 2-replica engine (11b) and entry() (11e);
+    # fine-tuning (phase 10) runs the plain attention, 0.
     rel_paths = {"batch": rel["launches"], "message": message["launches"],
                  "serve": served["launches"],
-                 "finetune": tuned["launches"]["flash_rel_attention"]}
+                 "finetune": tuned["launches"]["flash_rel_attention"],
+                 "multi_process": multi["launches"],
+                 "replicas": replicas["launches"],
+                 "entry": entered["launches"]}
     kernels = [
         row("flash_rel_attention (onepass)", "flash_rel_attention.cu",
             "audio_processor_tpu/models/flash_rel_attention.py:169",

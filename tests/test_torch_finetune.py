@@ -2,7 +2,8 @@
 JAX package's on the same manifests and weights, on the CPU: label
 encoding, manifests and batches, a 4-step ``finetune`` loss history,
 ``evaluate``, bitwise resume, eval metrics in the checkpoint metadata,
-the YAML CLI and the refusals.
+the YAML CLI, a data-parallel ZeRO-1 run in two processes against one
+process, and the card as the default device.
 
 The manifests hold tones over noise, not the pure tones of
 tests/test_finetune.py's ``_tiny_setup``: a pure tone leaves most mel
@@ -33,6 +34,9 @@ TINY = dict(hidden_size=32, num_hidden_layers=1, num_attention_heads=2,
 # order): atol 1e-4 plus rtol 1e-4.
 FEAT_ATOL = FEAT_RTOL = 1e-4
 LOSS_RTOL = 1e-4          # a loss history after AdamW steps
+# Adam moments: of their leaf's max, plus tests/test_torch_multidevice.py's
+# gradient floor
+MOMENT_RTOL, GRAD_FLOOR = 1e-4, 1e-9
 MARGIN = 1e-3             # ids compared only off near ties (ROADMAP.md)
 KW = dict(batch_size=4, learning_rate=3e-4, max_audio_sec=0.5,
           checkpoint_every=0, spec_augment=False)
@@ -273,12 +277,95 @@ def test_cli_main_without_yaml_says_so(tmp_path, monkeypatch, capsys):
     assert "pyyaml is not installed" in capsys.readouterr().err
 
 
-def test_sharded_configs_are_refused(tmp_path):
-    for kw in ({"mesh_shape": {"data": 2}}, {"zero1": True}):
-        cfg = tft.FinetuneConfig(manifest=str(tmp_path / "m.jsonl"),
-                                 device="cpu", **kw)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            tft.finetune(cfg)
+# One rank of a data-parallel fine-tuning run with ZeRO-1 (gloo, CPU).
+RANK_WORKER = r"""
+import json, sys
+import torch
+from audio_processor_tpu_torch.models import wav2vec2bert as tw
+from audio_processor_tpu_torch.models.tokenizer import CTCVocab
+from audio_processor_tpu_torch.parallel.distributed import (
+    initialize_distributed,
+)
+from audio_processor_tpu_torch.training import finetune as tft
+
+torch.set_num_threads(1)
+spec = json.loads(sys.argv[1])
+initialize_distributed(spec["init"], num_processes=2,
+                       process_id=int(sys.argv[2]), backend="gloo",
+                       timeout_s=60)
+model = tw.Wav2Vec2Bert(tw.W2VBertConfig(**spec["model"]))
+model.load_state_dict(torch.load(spec["weights"]))
+losses = []
+tft.finetune(tft.FinetuneConfig(**spec["cfg"]), model=model,
+             vocab=CTCVocab.darija_default(),
+             on_step=lambda step, state, loss, times: losses.append(
+                 float(loss)))
+print(json.dumps(losses))
+"""
+
+
+def test_finetune_under_a_mesh_matches_one_process(tmp_path, weights):
+    """``mesh_shape: {data: 2}`` with ``zero1`` in two gloo processes
+    (each decodes its half of every global batch, SpecAugment drawn for
+    the global batch) against one process on the same manifest: every
+    step's loss within 1e-4, and rank 0's resume point, in the
+    single-device format, loads into a one-process state whose moments
+    are within 1e-4 of their leaf's max of the one-process run's, and
+    whose params are all but 0.1% within lr / 100 of them (Adam moves an
+    element whose gradient sits at the fp32 noise floor by up to lr
+    either way each step, tests/test_torch_multidevice.py)."""
+    from audio_processor_tpu_torch.parallel import launch
+
+    model = _model(weights)
+    torch.save(model.state_dict(), tmp_path / "w.pt")
+    base = dict(manifest=str(_manifest(tmp_path)), device="cpu",
+                num_steps=3, **{**KW, "spec_augment": True})
+    spec = {"init": launch.file_init_method(tmp_path),
+            "weights": str(tmp_path / "w.pt"),
+            "model": {"vocab_size": model.cfg.vocab_size, **TINY},
+            "cfg": {**base, "output_dir": str(tmp_path / "mesh"),
+                    "mesh_shape": {"data": 2}, "zero1": True}}
+    outs = launch.run_ranks(
+        lambda r: launch.python_argv(RANK_WORKER, json.dumps(spec), str(r),
+                                     module=False), 2, 180)
+    ranks = [json.loads(o.strip().splitlines()[-1]) for o in outs]
+    one_losses, one_states = [], []
+
+    def on_step(step, state, loss, times):
+        one_losses.append(float(loss))
+        one_states.append(state)
+
+    one, _ = tft.finetune(
+        tft.FinetuneConfig(**base, output_dir=str(tmp_path / "one")),
+        model=_model(weights), vocab=CTCVocab.darija_default(),
+        on_step=on_step)
+    assert len(one_losses) == 3 and ranks[0] == ranks[1]
+    np.testing.assert_allclose(ranks[0], one_losses, rtol=LOSS_RTOL)
+    assert not (tmp_path / "mesh" / "state_latest" / (
+        tft.STATE_FILE + ".tmp")).exists()
+    state = tft.load_train_state(
+        tts.init_state(_model(weights), tts.make_optimizer(KW[
+            "learning_rate"])), tmp_path / "mesh")
+    assert state.step == 3
+    got, want = tts.named_moments(state), tts.named_moments(one_states[-1])
+    assert got["step"] == want["step"] == 3
+    # The gradient floor: a gradient that is zero in exact arithmetic (a
+    # key bias under softmax) is fp32 noise of the largest gradient.
+    gmax = max(float(t.abs().max()) for t in want["exp_avg"].values()) * 10
+    for key, floor in (("exp_avg", GRAD_FLOOR * gmax),
+                       ("exp_avg_sq", (GRAD_FLOOR * gmax) ** 2)):
+        assert set(got[key]) == set(want[key])
+        for name, ref in want[key].items():
+            np.testing.assert_allclose(
+                got[key][name].numpy(), ref.numpy(), rtol=0,
+                atol=MOMENT_RTOL * float(ref.abs().max()) + floor,
+                err_msg=f"{key} {name}")
+    loose = total = 0
+    for name, p in one.named_parameters():
+        d = (state.model.get_parameter(name).detach() - p.detach()).abs()
+        loose += int((d > KW["learning_rate"] / 100).sum())
+        total += d.numel()
+    assert loose <= 1e-3 * total, (loose, total)
 
 
 def test_finetune_runs_on_the_card_unless_asked(tmp_path):

@@ -55,14 +55,17 @@ def test_importing_the_port_loads_no_jax_and_no_jax_package():
     assert r.returncode == 0, r.stderr[-4000:]
     out = json.loads(r.stdout.strip().splitlines()[-1])
     assert len(out["modules"]) > 50     # io/ alone holds some 30 modules
-    # The message path's modules, the facade, the serving modules and
-    # the fine-tuning modules are among them.
+    # The message path's modules, the facade, the serving modules, the
+    # fine-tuning modules, the scale-out modules and the entry points are
+    # among them.
     assert {f"audio_processor_tpu_torch.{m}" for m in (
         "models.vad", "models.ctc_beam", "host.darija",
         "pipeline.segmenter", "pipeline.facades", "obs.profiler",
         "serving", "grpc_serving", "protos.serving_pb2", "utils.system",
-        "training.train_step", "training.finetune", "utils.metrics")} \
-        <= set(out["modules"])
+        "training.train_step", "training.finetune", "utils.metrics",
+        "parallel.distributed", "parallel.collectives", "parallel.mesh",
+        "parallel.multi_device", "parallel.pipeline", "parallel.launch",
+        "entry")} <= set(out["modules"])
     assert out["bad"] == []
 
 

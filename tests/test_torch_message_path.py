@@ -5,8 +5,8 @@ near-ties, the row tails, the unfused (``fuse_acoustic_features:
 false``) chunk rows, and the port's ``DataProcessor`` writing the same
 ``message`` rows in SQLite as the JAX one (energy VAD), idempotently,
 with the reference's batch-failure isolation and VAD-failure contract.
-Also the repairs: ``enable_profiling`` writes a trace through
-``obs/profiler.maybe_trace``, and a multi-process launch is refused."""
+Also the repair: ``enable_profiling`` writes a trace through
+``obs/profiler.maybe_trace``."""
 
 import dataclasses
 import json
@@ -24,7 +24,6 @@ from audio_processor_tpu_torch.config import PipelineConfig
 from audio_processor_tpu_torch.host.db import DatabaseManager
 from audio_processor_tpu_torch.io import wav
 from audio_processor_tpu_torch.models import wav2vec2bert as tw
-from audio_processor_tpu_torch.pipeline import engine as tengine
 from audio_processor_tpu_torch.pipeline.asr_engine import ASREngine
 from audio_processor_tpu_torch.pipeline.chunker import chunk_batch, split_audio
 from audio_processor_tpu_torch.pipeline.engine import DataProcessor
@@ -294,49 +293,3 @@ def test_enable_profiling_writes_a_trace(workspace):
     names = {e.get("name", "") for e in events}
     assert any("aten::" in n for n in names), sorted(names)[:20]
     assert list(out.glob("optimized_results_*.csv"))
-
-
-@pytest.mark.parametrize("env, refused", [
-    ({"JAX_COORDINATOR_ADDRESS": "localhost:1234"}, True),
-    ({"JAX_COORDINATOR_ADDRESS": "localhost:1234",
-      "JAX_NUM_PROCESSES": "2"}, True),
-    ({"JAX_COORDINATOR_ADDRESS": "localhost:1234",
-      "JAX_NUM_PROCESSES": "1"}, False),
-    ({"WORLD_SIZE": "2"}, True),
-    ({"WORLD_SIZE": "1"}, False)])
-def test_multi_process_launch_is_refused(tmp_path, monkeypatch, env,
-                                         refused):
-    """The CLI refuses a launch that names more than one process before
-    any file is scanned, and so does ``DataProcessor.run``; a
-    single-process environment runs."""
-    for k in ("JAX_COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES", "WORLD_SIZE"):
-        monkeypatch.delenv(k, raising=False)
-    for k, v in env.items():
-        monkeypatch.setenv(k, v)
-    scanned = []
-    monkeypatch.setattr(
-        tengine.AudioFileScanner, "scan_files_parallel",
-        lambda self, d: scanned.append(d) or [])
-    cfg_path = tmp_path / "c.yaml"
-    (tmp_path / "in").mkdir()
-    cfg_path.write_text(json.dumps({
-        "input_folder": str(tmp_path / "in"),
-        "output_folder": str(tmp_path / "out"),
-        "logs_folder": str(tmp_path / "logs")}))
-    proc = DataProcessor(PipelineConfig(input_folder=str(tmp_path / "in"),
-                                        output_folder=str(tmp_path / "o2")),
-                         asr_engine=object(), sentiment_analyzer=object(),
-                         device="cpu")
-    try:
-        if refused:
-            with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-                cli.main(["--config", str(cfg_path), "--save-mode", "csv",
-                          "--device", "cpu"])
-            with pytest.raises(NotImplementedError, match="parallel/"):
-                proc.run()
-            assert scanned == []
-        else:
-            proc.run()
-            assert len(scanned) == 1
-    finally:
-        proc.close()

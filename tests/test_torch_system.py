@@ -206,14 +206,17 @@ def test_cli_serve_on_the_cpu_answers(tmp_path, monkeypatch):
 def test_cli_serve_needs_cuda_unless_asked_and_one_process(tmp_path,
                                                            monkeypatch):
     """Without ``--device cpu`` the server is not built here (no CUDA);
-    a multi-process launch is refused before the server is built."""
+    a launch that names two processes but not this one's rank never runs
+    as one process: it is refused before the server is built."""
     built = []
     monkeypatch.setattr(serving, "serve", lambda *a, **k: built.append(1))
     cfg = _serve_config(tmp_path, tmp_path / "absent")
     with pytest.raises(RuntimeError, match="cuda"):
         cli.main(["--config", cfg, "--save-mode", "csv", "--serve"])
+    for k in ("RANK", "MASTER_ADDR", "JAX_COORDINATOR_ADDRESS"):
+        monkeypatch.delenv(k, raising=False)
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="Queue 1"):
+    with pytest.raises(ValueError, match="RANK"):
         cli.main(["--config", cfg, "--save-mode", "csv", "--serve",
                   "--device", "cpu"])
     assert built == []

@@ -2,8 +2,8 @@
 JAX package's on the same numpy inputs, on the CPU: ``ctc_loss`` against
 ``optax.ctc_loss``, SpecAugment's mask rules, one and three AdamW steps
 against the JAX ``train_step`` on weights from ``params_from_jax``
-(fp32, no augment), remat, and the refusals (kernels under autograd,
-sharded training)."""
+(fp32, no augment), remat, SpecAugment's global draw for a rank's rows,
+and the refusals (kernels under autograd, one-process meshes)."""
 
 import numpy as np
 import pytest
@@ -200,6 +200,23 @@ def test_spec_augment_structure():
         tts.spec_augment(gen(), feats, none).numpy(), feats.numpy())
 
 
+def test_spec_augment_rows_of_a_global_batch():
+    """A data-parallel rank's rows are masked as the single-device step
+    masks them: the starts of every global row are drawn, and each rank
+    keeps its own."""
+    feats = torch.randn(8, 40, 160, generator=torch.Generator()
+                        .manual_seed(1))
+    aug = tts.SpecAugment()
+    gen = lambda: tts.step_generator(3, 5, torch.device("cpu"))  # noqa: E731
+    whole = tts.spec_augment(gen(), feats, aug)
+    for start in (0, 2, 4, 6):
+        part = tts.spec_augment(gen(), feats[start:start + 2], aug,
+                                row_start=start, global_rows=8)
+        assert torch.equal(part, whole[start:start + 2]), start
+    assert not torch.equal(tts.spec_augment(gen(), feats[4:6], aug),
+                           whole[4:6])
+
+
 def test_spec_augment_matches_numpy_span_mask():
     """The drop mask equals a numpy restatement of the JAX span_mask
     formula on the starts the generator draws (time first, then bands),
@@ -363,18 +380,24 @@ def test_kernel_wrappers_refuse_autograd():
     model(feats, attention_impl="xla").sum().backward()
 
 
-def test_sharded_training_is_refused(setup):
+def test_one_process_meshes_do_not_train(setup):
+    """Training over a mesh runs one process per device: a one-process
+    mesh of several devices is refused, a mesh of one device is the
+    plain step, and a step bound to a mesh refuses a state built without
+    it."""
+    from audio_processor_tpu_torch.parallel.mesh import make_mesh
+
     model = _port_model(setup)
     tx = tts.make_optimizer(LR)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        tts.init_state(model, tx, mesh=object())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        tts.init_state(model, tx, zero1=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        tts.make_train_step(mesh=object())
-    state = tts.init_state(model, tx)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        tts.train_step(state, _torch_batch(setup[3]), opt_shardings={})
+    with pytest.raises(ValueError, match="one process per device"):
+        tts.init_state(model, tx, mesh=make_mesh(data=2,
+                                                 devices=["cpu"] * 2))
+    one = make_mesh(data=1, devices=["cpu"])
+    state = tts.init_state(model, tx, mesh=one, zero1=True)
+    assert state.mesh is None and state.module is None
+    assert isinstance(state.optimizer, torch.optim.AdamW)
+    with pytest.raises(ValueError, match="not built over this mesh"):
+        tts.make_train_step(mesh=one)(state, _torch_batch(setup[3]))
 
 
 def test_make_optimizer_matches_optax_adamw():
