@@ -62,6 +62,10 @@ def setup_logging(logs_folder: str) -> None:
     root.addHandler(console)
 
 
+def validate_config(cfg) -> None:
+    cfg.validate()
+
+
 def check_disk_space(min_free_gb: float) -> bool:
     """Disk-space gate (reference: run.py:137-143)."""
     free_gb = shutil.disk_usage("/").free / 1024 ** 3
@@ -208,7 +212,7 @@ def main(argv=None) -> int:
     if pdist.process_count() > 1 and args.device == "cuda":
         device = pdist.local_device("cuda")
     try:
-        cfg.validate()
+        validate_config(cfg)
     except ValueError as e:
         logger.error("Invalid configuration: %s", e)
         return 2

@@ -28,11 +28,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from audio_processor_tpu_torch.dsp.fbank import require_true_fp32
 from audio_processor_tpu_torch.dsp.mfcc import (
     centered_window, mfcc_from_power_frames,
 )
-from audio_processor_tpu_torch.dsp.stft import dft_matrices, frame_signal
+from audio_processor_tpu_torch.dsp.stft import (
+    frame_signal, power_spectrum, require_true_fp32,
+)
 
 FRAME_LENGTH = 400
 HOP = 160
@@ -41,6 +42,14 @@ PAD = N_FFT // 2          # torch.stft center padding
 N_MFCC = 13
 NUM_FEATURES = 12 + 2 * N_MFCC  # 38
 SAMPLE_RATE = 16000.0
+# The feature vector's order.
+FEATURE_NAMES = (
+    ["rms_mean", "rms_std", "rms_range", "zcr_mean", "zcr_std",
+     "spectral_centroid_mean", "spectral_centroid_std",
+     "spectral_bandwidth_mean", "spectral_bandwidth_std",
+     "spectral_rolloff_mean", "spectral_rolloff_std", "tempo"]
+    + [x for i in range(N_MFCC) for x in (f"mfcc_{i}_mean", f"mfcc_{i}_std")]
+)
 
 
 def prepare_reflect_padded(waves: List[np.ndarray], bucket_len: int
@@ -130,10 +139,7 @@ def extract_features_batch(padded: torch.Tensor, lengths: torch.Tensor
     win = torch.from_numpy(
         centered_window(FRAME_LENGTH, N_FFT).astype(np.float32)).to(dev)
     sframes = sframes * win
-    cos_m, msin_m = dft_matrices(N_FFT, N_FFT, dev)
-    re = sframes @ cos_m
-    im = sframes @ msin_m
-    power = re * re + im * im                                  # [B,F2,257]
+    power = power_spectrum(sframes, N_FFT)                     # [B,F2,257]
 
     nf2_valid = torch.div(lengths, HOP, rounding_mode="floor") + 1
     smask = (torch.arange(nf2_max, device=dev)[None, :]

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from audio_processor_tpu_torch.dsp.stft import (
-    dft_matrices, frame_signal, povey_window,
+    frame_signal, povey_window, power_spectrum, require_true_fp32,
 )
 
 FRAME_LENGTH = 400   # 25 ms @ 16 kHz
@@ -72,12 +72,8 @@ def max_num_frames(padded_length: int) -> int:
     return n + (-n) % STRIDE
 
 
-def require_true_fp32(device: torch.device) -> None:
-    """Raise if fp32 matmuls on ``device`` would run in TF32."""
-    if device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
-        raise RuntimeError(
-            "torch.backends.cuda.matmul.allow_tf32 is True: the DSP "
-            "frontends need true fp32 matmuls")
+def num_output_frames(padded_length: int) -> int:
+    return max_num_frames(padded_length) // STRIDE
 
 
 def log_mel_frontend(waveform: torch.Tensor, lengths: torch.Tensor
@@ -113,10 +109,7 @@ def log_mel_frontend(waveform: torch.Tensor, lengths: torch.Tensor
         povey_window(FRAME_LENGTH).astype(np.float32)).to(dev)
     frames = frames * window
 
-    cos_m, msin_m = dft_matrices(FRAME_LENGTH, FFT_LENGTH, dev)
-    re = frames @ cos_m
-    im = frames @ msin_m
-    power = re * re + im * im                                  # [B,F,257]
+    power = power_spectrum(frames, FFT_LENGTH)                 # [B,F,257]
     mel = power @ torch.from_numpy(kaldi_mel_filters()).to(dev)  # [B,F,80]
     logmel = torch.log(torch.clamp(mel, min=MEL_FLOOR))
 
@@ -143,3 +136,23 @@ def log_mel_frontend(waveform: torch.Tensor, lengths: torch.Tensor
         frame_mask = torch.nn.functional.pad(frame_mask, (0, pad))
     feats = feats.reshape(B, n_frames // STRIDE, NUM_MEL_BINS * STRIDE)
     return feats, frame_mask[:, 1::STRIDE]
+
+
+def log_mel_frontend_np(waveform: np.ndarray) -> np.ndarray:
+    """Float64 single-utterance reference path (pre-normalization
+    fbank), used by tests and host-side verification."""
+    x = np.asarray(waveform, dtype=np.float64) * 32768.0
+    n = 1 + (len(x) - FRAME_LENGTH) // HOP_LENGTH
+    window = povey_window(FRAME_LENGTH)
+    bank = kaldi_mel_filters().astype(np.float64)
+    out = np.empty((n, NUM_MEL_BINS))
+    for f in range(n):
+        fr = x[f * HOP_LENGTH: f * HOP_LENGTH + FRAME_LENGTH].copy()
+        fr -= fr.mean()
+        fr[1:] -= PREEMPHASIS * fr[:-1].copy()
+        fr[0] *= 1 - PREEMPHASIS
+        fr *= window
+        spec = np.fft.rfft(fr, FFT_LENGTH)
+        power = np.abs(spec) ** 2
+        out[f] = np.log(np.maximum(power @ bank, MEL_FLOOR))
+    return out

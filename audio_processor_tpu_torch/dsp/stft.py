@@ -2,7 +2,9 @@
 
 The windows and DFT matrices are built on the host in numpy exactly as
 the reference builds them, then moved to the caller's device; framing
-is ``Tensor.unfold`` (a strided view, no gather).
+is ``Tensor.unfold`` (a strided view, no gather). The DFT products are
+true fp32 matmuls (the reference's ``Precision.HIGHEST``): on CUDA they
+refuse to run while ``torch.backends.cuda.matmul.allow_tf32`` is on.
 """
 
 from __future__ import annotations
@@ -50,3 +52,45 @@ def frame_signal(x: torch.Tensor, frame_length: int, hop: int,
     """[..., T] -> [..., num_frames, frame_length] overlapping frames
     (a view; ``num_frames`` must fit in T)."""
     return x.unfold(-1, frame_length, hop)[..., :num_frames, :]
+
+
+def require_true_fp32(device: torch.device) -> None:
+    """Raise if fp32 matmuls on ``device`` would run in TF32."""
+    if device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(
+            "torch.backends.cuda.matmul.allow_tf32 is True: the DSP "
+            "frontends need true fp32 matmuls")
+
+
+def power_spectrum(frames: torch.Tensor, fft_length: int) -> torch.Tensor:
+    """[..., F, frame_length] -> [..., F, fft_length//2+1] power, as two
+    fp32 DFT matmuls (a reduced-precision product costs ~1% relative
+    error in the power spectrum, which the log-mel values show)."""
+    require_true_fp32(frames.device)
+    cos_m, msin_m = dft_matrices(frames.shape[-1], fft_length,
+                                 frames.device)
+    re = frames @ cos_m
+    im = frames @ msin_m
+    return re * re + im * im
+
+
+def magnitude_spectrum(frames: torch.Tensor, fft_length: int
+                       ) -> torch.Tensor:
+    return torch.sqrt(torch.clamp(power_spectrum(frames, fft_length),
+                                  min=0.0))
+
+
+def num_frames_nocenter(length, frame_length: int, hop: int):
+    """Frame count for center=False framing (an int for an int, else a
+    tensor of counts)."""
+    if isinstance(length, (int, np.integer)):
+        return max(0, 1 + (length - frame_length) // hop)
+    return torch.clamp(1 + torch.div(length - frame_length, hop,
+                                     rounding_mode="floor"), min=0)
+
+
+def reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
+    """Reflect padding on the last axis (torch.stft center=True style)."""
+    flat = x.reshape(-1, x.shape[-1])
+    out = torch.nn.functional.pad(flat, (pad, pad), mode="reflect")
+    return out.reshape(*x.shape[:-1], out.shape[-1])

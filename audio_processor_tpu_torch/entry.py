@@ -11,7 +11,8 @@
 
     python -m audio_processor_tpu_torch.entry [--devices N] [--device cpu]
 
-runs ``dryrun_multichip(N)`` (default 8 processes on the CPU, gloo).
+runs ``dryrun_multichip(N)`` (default 8 processes) on the card, or on the
+CPU under gloo with ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -138,7 +139,8 @@ def _dryrun_rank(rank: int, world: int, init: str, kind: str, backend: str,
     fmask = batch["feature_mask"].bool()
     with torch.no_grad():
         ref = model(feats, fmask)
-    pp = make_pipelined_forward(pp_cfg, make_stage_mesh(world), 4)(
+    pp = make_pipelined_forward(pp_cfg, make_stage_mesh(world, device=kind),
+                                4)(
         model, feats, fmask)
     pp_err = float((pp - ref).abs().max())
     assert pp_err < 1e-4, f"pipelined forward mismatch: {pp_err}"
@@ -176,15 +178,21 @@ def _dryrun_rank(rank: int, world: int, init: str, kind: str, backend: str,
 def dryrun_multichip(n_devices: int, device: Optional[str] = None,
                      timeout_s: float = 600.0) -> dict:
     """Run the dry run in ``n_devices`` processes and return rank 0's
-    summary. ``device`` (default the card when there is one, else the
-    CPU) is each process's: ``cuda:<rank>`` with NCCL when there are
+    summary. ``device`` (default the card; ``"cpu"`` runs every rank on
+    the CPU) is each process's: ``cuda:<rank>`` with NCCL when there are
     enough cards, else every rank on the visible cards under gloo, which
-    is named here and printed."""
+    is named here and printed. With no card and no ``device="cpu"`` it
+    raises RuntimeError before any process starts."""
     from audio_processor_tpu_torch.parallel.launch import (
         file_init_method, python_argv, run_ranks,
     )
 
-    kind = device or ("cuda" if torch.cuda.is_available() else "cpu")
+    kind = torch.device(device or "cuda").type
+    if kind == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "dryrun_multichip runs on the card, and no CUDA device is "
+            "visible; pass device=\"cpu\" (--device cpu) to run it on the "
+            "CPU")
     backend = "nccl" if kind == "cuda" \
         and torch.cuda.device_count() >= n_devices else "gloo"
     with tempfile.TemporaryDirectory() as tmp:
@@ -214,7 +222,7 @@ def main(argv=None) -> int:
         _dryrun_rank(args.rank, args.world, args.init, args.device,
                      args.backend, Path(args.out))
         return 0
-    dryrun_multichip(args.devices, args.device or "cpu")
+    dryrun_multichip(args.devices, args.device)
     return 0
 
 

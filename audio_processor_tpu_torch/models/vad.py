@@ -33,8 +33,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from audio_processor_tpu_torch.dsp.fbank import require_true_fp32
-from audio_processor_tpu_torch.dsp.stft import frame_signal
+from audio_processor_tpu_torch.dsp.stft import frame_signal, require_true_fp32
 from audio_processor_tpu_torch.io.wire import maybe_int16_wire, upload
 
 
@@ -353,6 +352,46 @@ def convert_pyannet(state_dict: Dict[str, Any],
     for p in ("weight", "bias"):
         out[f"classifier.{p}"] = _f32(state_dict[f"classifier.{p}"])
     return out
+
+
+def synthetic_pyannote_state_dict(seed: int, num_outputs: int = 3) -> dict:
+    """A PyanNet state dict in pyannote.audio's key layout at its default
+    geometry (SincNet 80 filters, convs 60, 2-layer BiLSTM 128, linear
+    128 x 2), seeded. The classifier is scaled up (x30, bias -1) so the
+    random network's frame probabilities spread around 0.5 instead of
+    sitting at it: the VAD then finds speech on most frames, with gaps."""
+    g = torch.Generator().manual_seed(seed)
+
+    def n(*shape, scale):
+        return scale * torch.randn(*shape, generator=g)
+
+    sd = {"sincnet.wav_norm1d.weight": 1 + n(1, scale=0.1),
+          "sincnet.wav_norm1d.bias": n(1, scale=0.1),
+          "sincnet.conv1d.0.filterbank.low_hz_":
+              torch.linspace(30.0, 6000.0, 80)[:, None],
+          "sincnet.conv1d.0.filterbank.band_hz_":
+              torch.linspace(80.0, 400.0, 80)[:, None]}
+    for i, (c_in, c_out) in ((1, (80, 60)), (2, (60, 60))):
+        sd[f"sincnet.conv1d.{i}.weight"] = n(c_out, c_in, 5,
+                                             scale=(5 * c_in) ** -0.5)
+        sd[f"sincnet.conv1d.{i}.bias"] = n(c_out, scale=0.1)
+    for i, c in enumerate((80, 60, 60)):
+        sd[f"sincnet.norm1d.{i}.weight"] = 1 + n(c, scale=0.1)
+        sd[f"sincnet.norm1d.{i}.bias"] = n(c, scale=0.1)
+    for layer, c_in in ((0, 60), (1, 256)):
+        for sfx in ("", "_reverse"):
+            sd[f"lstm.weight_ih_l{layer}{sfx}"] = n(512, c_in,
+                                                    scale=c_in ** -0.5)
+            sd[f"lstm.weight_hh_l{layer}{sfx}"] = n(512, 128,
+                                                    scale=128 ** -0.5)
+            sd[f"lstm.bias_ih_l{layer}{sfx}"] = n(512, scale=0.1)
+            sd[f"lstm.bias_hh_l{layer}{sfx}"] = n(512, scale=0.1)
+    for i, c_in in enumerate((256, 128)):
+        sd[f"linear.{i}.weight"] = n(128, c_in, scale=c_in ** -0.5)
+        sd[f"linear.{i}.bias"] = n(128, scale=0.1)
+    sd["classifier.weight"] = n(num_outputs, 128, scale=30 * 128 ** -0.5)
+    sd["classifier.bias"] = torch.full((num_outputs,), -1.0)
+    return sd
 
 
 def params_from_jax(params_np: Dict[str, Any], cfg: PyanNetConfig

@@ -89,10 +89,14 @@ class Mesh:
 
 
 def _default_devices() -> list:
-    if torch.cuda.is_available():
-        return [torch.device("cuda", i)
-                for i in range(torch.cuda.device_count())]
-    return [torch.device("cpu")]
+    """The visible cards. With none, raise: a CPU mesh is built only when
+    the caller asks for it."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is visible, so no mesh of cards can be built; "
+            "pass devices=['cpu'] * n to build a CPU mesh of n devices")
+    return [torch.device("cuda", i)
+            for i in range(torch.cuda.device_count())]
 
 
 def build_mesh(sizes: Dict[str, int], devices: Optional[Sequence] = None,
@@ -100,8 +104,9 @@ def build_mesh(sizes: Dict[str, int], devices: Optional[Sequence] = None,
     """A mesh of the given axis sizes. ``devices`` (a list, repeats
     allowed) makes one process's grid; otherwise an initialised process
     group of several processes makes a grid of them (the local device is
-    ``cuda:<LOCAL_RANK>``, or ``device``), and with none the visible cards
-    (else the CPU) make the grid."""
+    ``cuda:<LOCAL_RANK>``, or ``device``: pass ``"cpu"`` for CPU ranks),
+    and with none the visible cards make the grid (RuntimeError when no
+    card is visible)."""
     names = tuple(sizes)
     n = math.prod(sizes.values())
     if devices is None and dist.is_initialized() \
@@ -110,8 +115,7 @@ def build_mesh(sizes: Dict[str, int], devices: Optional[Sequence] = None,
         if n != world:
             raise ValueError(f"a mesh over processes spans every rank: "
                              f"{sizes} has {n} places for {world} ranks")
-        kind = device or ("cuda" if torch.cuda.is_available() else "cpu")
-        local = pdist.local_device(kind)
+        local = pdist.local_device(device or "cuda")
         if local.type == "cuda":
             # Set before DeviceMesh, which would otherwise pick
             # cuda:<LOCAL_RANK> even where ranks share a card.
@@ -142,8 +146,8 @@ def make_mesh(n_devices: Optional[int] = None, data: Optional[int] = None,
               device: Optional[str] = None) -> Mesh:
     """A ('data', 'seq', 'model') mesh. ``n_devices`` defaults to the
     world size across processes, else to ``len(devices)`` or the visible
-    cards; ``data`` to ``n_devices // (model * seq)``. Too few devices
-    raise RuntimeError."""
+    cards; ``data`` to ``n_devices // (model * seq)``. Too few devices,
+    or no card when no ``devices`` are given, raise RuntimeError."""
     if n_devices is None:
         if devices is not None:
             n_devices = len(devices)

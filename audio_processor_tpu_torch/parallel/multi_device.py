@@ -38,9 +38,9 @@ def data_shardings(mesh: Mesh) -> Dict[str, tuple]:
 
 def mesh_from_config(config, device=None) -> Mesh:
     """The mesh ``config.mesh_shape`` ({data, model, seq}) names: over the
-    launch's processes or the visible cards, or over CPU replicas when
-    ``device`` is the CPU (the counterpart of the reference's virtual CPU
-    devices)."""
+    launch's processes or the visible cards (RuntimeError when none is
+    visible), or over CPU replicas when ``device`` is the CPU (the
+    counterpart of the reference's virtual CPU devices)."""
     shape = config.get("mesh_shape") or {}
     data = int(shape.get("data", 0)) if shape else 0
     model = int(shape.get("model", 1)) if shape else 1

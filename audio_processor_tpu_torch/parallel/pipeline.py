@@ -30,11 +30,12 @@ from audio_processor_tpu_torch.parallel import collectives as coll
 from audio_processor_tpu_torch.parallel.mesh import Mesh, build_mesh
 
 
-def make_stage_mesh(n_stages: int, devices: Optional[Sequence] = None
-                    ) -> Mesh:
+def make_stage_mesh(n_stages: int, devices: Optional[Sequence] = None,
+                    device: Optional[str] = None) -> Mesh:
     """A mesh with one ``"stage"`` axis over ``n_stages`` processes (the
-    launch's world), or one process's devices when given."""
-    return build_mesh({"stage": n_stages}, devices=devices)
+    launch's world; each on its card, or on ``device``), or one process's
+    devices when given. Builds no CPU mesh unless asked."""
+    return build_mesh({"stage": n_stages}, devices=devices, device=device)
 
 
 def _stage_of(mesh: Mesh, cfg: w2v.W2VBertConfig) -> Tuple[int, int, range]:

@@ -162,8 +162,20 @@ Phases, each of which fails the run (non-zero exit) on any error:
    stages x 4 microbatches) at world 2, fp32, full width with 4 layers,
    one step each against one process on this card (loss, params, the
    pipelined forward). 11e: ``entry()`` at the full geometry (24
-   flash_rel launches) and ``dryrun_multichip(2)``. 11f: the device
-   ``resample`` against ``resample_np`` (8, 44.1, 48 kHz to 16 kHz).
+   flash_rel launches), ``dryrun_multichip(2)``, ``python -m
+   audio_processor_tpu_torch.entry --devices 2`` with no ``--device``
+   (it must run on the card), and ``make_mesh(n_devices=1)`` with no
+   devices (it must hold cuda:0). 11f: the device ``resample`` against
+   ``resample_np`` (8, 44.1, 48 kHz to 16 kHz);
+12. the device acoustic heads (``models/sklearn_infer.py``'s torch
+   functions) on the card against the port's numpy heads, which the
+   pipeline runs: converted dicts built from the seed (no sklearn on the
+   card) of a StandardScaler, a 4-class RBF SVC with 1,500 support
+   vectors of 38 dims and Platt coefficients, and a 100-tree forest of
+   depth <= 20, through ``scaler_transform``, ``svc_predict_proba`` /
+   ``svc_predict`` and ``forest_predict_proba`` / ``forest_predict`` at
+   B = 48: probabilities within 1e-5, labels equal away from ties; prints
+   ms per call on the card beside the numpy heads'.
 
 Kernel launch counts are set to 0 just before each of the paths 5, 5b,
 6, 7, 7c, 8, 10, 11a (in each process) and 11e, and after phase 9's
@@ -177,6 +189,7 @@ nothing of JAX and nothing of the JAX package ``audio_processor_tpu``.
 from __future__ import annotations
 
 import argparse
+import ast
 import contextlib
 import csv
 import importlib.util
@@ -1351,46 +1364,6 @@ def int8_phase(seed: int, work: Path, models: Path, bf16_engine) -> dict:
 
 
 # ---------------------------------------------------------- phases 4c, 8
-def pyannote_state_dict(seed: int, num_outputs: int = 3) -> dict:
-    """A PyanNet state dict in pyannote.audio's key layout at its default
-    geometry (SincNet 80 filters, convs 60, 2-layer BiLSTM 128, linear
-    128 x 2), seeded. The classifier is scaled up (x30, bias -1) so the
-    random network's frame probabilities spread around 0.5 instead of
-    sitting at it: the VAD then finds speech on most frames, with gaps."""
-    g = torch.Generator().manual_seed(seed)
-
-    def n(*shape, scale):
-        return scale * torch.randn(*shape, generator=g)
-
-    sd = {"sincnet.wav_norm1d.weight": 1 + n(1, scale=0.1),
-          "sincnet.wav_norm1d.bias": n(1, scale=0.1),
-          "sincnet.conv1d.0.filterbank.low_hz_":
-              torch.linspace(30.0, 6000.0, 80)[:, None],
-          "sincnet.conv1d.0.filterbank.band_hz_":
-              torch.linspace(80.0, 400.0, 80)[:, None]}
-    for i, (c_in, c_out) in ((1, (80, 60)), (2, (60, 60))):
-        sd[f"sincnet.conv1d.{i}.weight"] = n(c_out, c_in, 5,
-                                             scale=(5 * c_in) ** -0.5)
-        sd[f"sincnet.conv1d.{i}.bias"] = n(c_out, scale=0.1)
-    for i, c in enumerate((80, 60, 60)):
-        sd[f"sincnet.norm1d.{i}.weight"] = 1 + n(c, scale=0.1)
-        sd[f"sincnet.norm1d.{i}.bias"] = n(c, scale=0.1)
-    for layer, c_in in ((0, 60), (1, 256)):
-        for sfx in ("", "_reverse"):
-            sd[f"lstm.weight_ih_l{layer}{sfx}"] = n(512, c_in,
-                                                    scale=c_in ** -0.5)
-            sd[f"lstm.weight_hh_l{layer}{sfx}"] = n(512, 128,
-                                                    scale=128 ** -0.5)
-            sd[f"lstm.bias_ih_l{layer}{sfx}"] = n(512, scale=0.1)
-            sd[f"lstm.bias_hh_l{layer}{sfx}"] = n(512, scale=0.1)
-    for i, c_in in enumerate((256, 128)):
-        sd[f"linear.{i}.weight"] = n(128, c_in, scale=c_in ** -0.5)
-        sd[f"linear.{i}.bias"] = n(128, scale=0.1)
-    sd["classifier.weight"] = n(num_outputs, 128, scale=30 * 128 ** -0.5)
-    sd["classifier.bias"] = torch.full((num_outputs,), -1.0)
-    return sd
-
-
 def _clear_ids(cpu, rows, lengths, ids_c, ids_g, n_real, label):
     """Greedy ids card vs CPU on the real rows' frames whose CPU top-2
     margin exceeds MARGIN; returns (clear, total) frame counts."""
@@ -1431,7 +1404,8 @@ def message_reference(seed: int, impl: str, profile: bool) -> None:
         wave, sr = load_audio(Path(tmp) / "in" / "call-00.wav")
     # PyanNet, windowed, from a pyannote-layout state dict.
     vcfg = vad.PyanNetConfig(num_outputs=3)
-    sd = vad.convert_pyannet(pyannote_state_dict(seed + 4), vcfg)
+    sd = vad.convert_pyannet(vad.synthetic_pyannote_state_dict(seed + 4),
+                              vcfg)
     probs = {}
     for dev in ("cpu", "cuda"):
         model = vad.PyanNet(vcfg)
@@ -1555,6 +1529,9 @@ def message_path(seed: int, work: Path, n_calls: int = 4,
     from audio_processor_tpu_torch.dsp.fbank import max_num_frames
     from audio_processor_tpu_torch.host.db import DatabaseManager
     from audio_processor_tpu_torch.io.decode import load_audio
+    from audio_processor_tpu_torch.models.vad import (
+        synthetic_pyannote_state_dict,
+    )
     from audio_processor_tpu_torch.models.wav2vec2bert import W2VBertConfig
     from audio_processor_tpu_torch.pipeline.engine import DataProcessor
     from audio_processor_tpu_torch.pipeline.segmenter import (
@@ -1565,7 +1542,8 @@ def message_path(seed: int, work: Path, n_calls: int = 4,
     log(f"{tag} card: {smi_line()}")
     ckpt = work / "pyannet.ckpt"
     work.mkdir(parents=True, exist_ok=True)
-    torch.save({"state_dict": pyannote_state_dict(seed + 8)}, ckpt)
+    torch.save({"state_dict": synthetic_pyannote_state_dict(seed + 8)},
+               ckpt)
     audio_s = _write_calls(work / "input", seed + 8, n_calls, 100.0, n_8k)
     cfg = PipelineConfig.from_dict({
         "input_folder": str(work / "input"),
@@ -3038,6 +3016,26 @@ def entry_points() -> dict:
     log(f"{tag} entry(): ids {tuple(ids.shape)} in [0, {vocab}), "
         f"{counts['flash_rel_attention']} flash_rel launches, {ms:.1f} ms "
         f"(4 x 25 s, bf16); dryrun_multichip(2): {summary}")
+    # The module's entry with no --device runs on the card.
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "audio_processor_tpu_torch.entry",
+                        "--devices", "2"], cwd=REPO, capture_output=True,
+                       text=True, timeout=600)
+    assert r.returncode == 0, r.stderr[-4000:]
+    (line,) = [ln for ln in r.stdout.splitlines()
+               if ln.startswith("dryrun_multichip ok: ")]
+    cli = ast.literal_eval(line.split(": ", 1)[1])
+    assert cli["device"].startswith("cuda"), cli
+    assert cli["backend"] == _backend(2), cli
+    log(f"{tag} python -m audio_processor_tpu_torch.entry --devices 2 (no "
+        f"--device): device {cli['device']}, backend {cli['backend']}, "
+        f"{time.perf_counter() - t0:.1f} s")
+    from audio_processor_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(n_devices=1)
+    assert mesh.devices.flat[0] == torch.device("cuda", 0), mesh.devices
+    log(f"{tag} make_mesh(n_devices=1) with no devices: {mesh}, on "
+        f"{mesh.devices.flat[0]}")
     return {"launches": counts["flash_rel_attention"]}
 
 
@@ -3060,6 +3058,157 @@ def device_resample(seed: int) -> None:
                    f"{_cuda_ms(lambda: resample(xc, orig, 16000), 10):.3f} ms")
     log(f"[11f resample] card vs resample_np (tol {RESAMPLE_ATOL:g}): "
         + "; ".join(out))
+
+
+HEADS_PROB_TOL = 1e-5   # phase 12, card heads vs the numpy heads
+HEADS_TIE = 1e-4        # labels compared where every |decision| exceeds it
+
+
+def synthetic_heads(seed: int, n_sv: int = 1500, d: int = 38, k: int = 4,
+                    n_trees: int = 100, max_depth: int = 20,
+                    max_nodes: int = 1500) -> tuple:
+    """Converted acoustic heads as ``sklearn_infer.convert_*`` gives them,
+    from a seed (the card has no sklearn): a StandardScaler over the 38
+    features, a k-class RBF SVC with ``n_sv`` support vectors, duals in
+    [-1, 1] and Platt coefficients, and a forest of ``n_trees`` trees
+    grown breadth first (a node splits with probability 0.8, up to
+    ``max_depth`` levels and ``max_nodes`` nodes) with a class
+    distribution at every node. Returns (scaler, svc, forest, x) with x
+    48 raw feature rows."""
+    rng = np.random.default_rng(seed)
+    scaler = {"mean": rng.normal(0, 3, d).astype(np.float32),
+              "scale": rng.uniform(0.5, 4, d).astype(np.float32)}
+    n_support = np.full(k, n_sv // k, np.int32)
+    n_support[:n_sv - int(n_support.sum())] += 1
+    pairs = k * (k - 1) // 2
+    classes = np.array(CLIENT_LABELS)
+    svc = {"support_vectors": rng.standard_normal((n_sv, d)).astype(
+               np.float32),
+           "dual_coef": rng.uniform(-1, 1, (k - 1, n_sv)).astype(np.float32),
+           "intercept": rng.normal(0, 0.3, pairs).astype(np.float32),
+           "n_support": n_support,
+           "prob_a": rng.uniform(-4, -1, pairs).astype(np.float32),
+           "prob_b": rng.normal(0, 0.2, pairs).astype(np.float32),
+           "gamma": np.float32(1.0 / d), "kernel": "rbf",
+           "coef0": np.float32(0.0), "degree": 3, "classes": classes}
+    trees = []
+    for _ in range(n_trees):
+        left, right, feat, thr, depth = [-1], [-1], [0], [0.0], [0]
+        frontier = [0]
+        while frontier:
+            grown = []
+            for n in frontier:
+                if depth[n] < max_depth and len(left) + 2 <= max_nodes \
+                        and rng.random() < 0.8:
+                    feat[n] = int(rng.integers(d))
+                    thr[n] = float(rng.normal(0, 0.7))
+                    for side in (left, right):
+                        side[n] = len(left)
+                        left.append(-1)
+                        right.append(-1)
+                        feat.append(0)
+                        thr.append(0.0)
+                        depth.append(depth[n] + 1)
+                        grown.append(side[n])
+            frontier = grown
+        trees.append((left, right, feat, thr, max(depth)))
+    N = max(len(t[0]) for t in trees)
+    forest = {"left": np.full((n_trees, N), -1, np.int32),
+              "right": np.full((n_trees, N), -1, np.int32),
+              "feature": np.zeros((n_trees, N), np.int32),
+              "threshold": np.zeros((n_trees, N), np.float32),
+              "value": np.zeros((n_trees, N, k), np.float32),
+              "max_depth": max(t[4] for t in trees), "classes": classes}
+    for i, (lft, rgt, feat, thr, _) in enumerate(trees):
+        n = len(lft)
+        forest["left"][i, :n], forest["right"][i, :n] = lft, rgt
+        forest["feature"][i, :n], forest["threshold"][i, :n] = feat, thr
+        forest["value"][i, :n] = rng.dirichlet(np.ones(k), n)
+    x = (scaler["mean"] + scaler["scale"]
+         * rng.standard_normal((48, d))).astype(np.float32)
+    return scaler, svc, forest, x
+
+
+def _host_ms(fn, reps: int = 20) -> float:
+    """Median wall ms of ``fn`` over ``reps`` calls, each ending in a
+    device synchronise (the heads' coupling loop syncs as it goes)."""
+    fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(walls))
+
+
+def acoustic_heads(seed: int) -> None:
+    """12: the device acoustic heads (``sklearn_infer.scaler_transform``,
+    ``svc_predict_proba``/``svc_predict`` and ``forest_predict_proba``/
+    ``forest_predict``) on the card against the port's numpy heads, which
+    the pipeline runs, at B = 48 on seeded converted dicts (a 4-class
+    RBF SVC with 1,500 support vectors of 38 dims, a 100-tree forest of
+    depth <= 20)."""
+    from audio_processor_tpu_torch.models import sklearn_infer as sk
+
+    tag = "[12 heads]"
+    scaler, svc, forest, x = synthetic_heads(seed + 12)
+    on_card = {name: sk.to_device(m, "cuda")
+               for name, m in (("scaler", scaler), ("svc", svc),
+                               ("forest", forest))}
+    xc = torch.from_numpy(x).cuda()
+    xs = sk.scaler_transform(on_card["scaler"], xc)
+    xs_np = sk.scaler_transform_np(scaler, x)
+    scaler_err = float(np.abs(xs.cpu().numpy() - xs_np).max())
+    assert scaler_err <= HEADS_PROB_TOL * max(1.0, np.abs(xs_np).max()), \
+        scaler_err
+    dec = sk.svc_decision_values(on_card["svc"], xs).cpu().numpy()
+    dec_np = sk._svc_decision_values_np(svc, xs_np)
+    proba = sk.svc_predict_proba(on_card["svc"], xs).cpu().numpy()
+    proba_np = sk.svc_predict_proba_np(svc, xs_np)
+    svc_err = float(np.abs(proba - proba_np).max())
+    assert svc_err <= HEADS_PROB_TOL, svc_err
+    clear = (np.abs(dec_np) > HEADS_TIE).all(-1)
+    pred = sk.svc_predict(on_card["svc"], xs).cpu().numpy()
+    assert clear.sum() >= 40, clear.sum()
+    assert (pred[clear] == sk.svc_predict_np(svc, xs_np)[clear]).all()
+    fproba = sk.forest_predict_proba(on_card["forest"], xs).cpu().numpy()
+    fproba_np = sk.forest_predict_proba_np(forest, xs_np)
+    forest_err = float(np.abs(fproba - fproba_np).max())
+    assert forest_err <= HEADS_PROB_TOL, forest_err
+    top2 = np.sort(fproba_np, -1)[:, -2:]
+    fclear = top2[:, 1] - top2[:, 0] > HEADS_PROB_TOL
+    fpred = sk.forest_predict(on_card["forest"], xs).cpu().numpy()
+    assert (fpred[fclear] == sk.forest_predict_np(forest, xs_np)[fclear]
+            ).all()
+    assert xs.is_cuda and np.isfinite(proba).all()
+
+    card_ms = {
+        "scaler_transform": _host_ms(
+            lambda: sk.scaler_transform(on_card["scaler"], xc)),
+        "svc_predict_proba": _host_ms(
+            lambda: sk.svc_predict_proba(on_card["svc"], xs)),
+        "forest_predict_proba": _host_ms(
+            lambda: sk.forest_predict_proba(on_card["forest"], xs))}
+    numpy_ms = {
+        "scaler_transform": _host_ms(
+            lambda: sk.scaler_transform_np(scaler, x)),
+        "svc_predict_proba": _host_ms(
+            lambda: sk.svc_predict_proba_np(svc, xs_np)),
+        "forest_predict_proba": _host_ms(
+            lambda: sk.forest_predict_proba_np(forest, xs_np))}
+    log(f"{tag} card vs numpy heads at B=48: scaler max abs "
+        f"{scaler_err:.2e}; SVC (4 classes, {svc['support_vectors'].shape[0]}"
+        f" support vectors) proba max abs {svc_err:.2e}, labels equal on "
+        f"{int(clear.sum())}/48 rows clear of |dec| <= {HEADS_TIE:g}; forest "
+        f"({forest['left'].shape[0]} trees, {forest['left'].shape[1]} nodes, "
+        f"depth {forest['max_depth']}) proba max abs {forest_err:.2e}, labels"
+        f" equal on {int(fclear.sum())}/48 rows (tol {HEADS_PROB_TOL:g})")
+    log(f"{tag} ms per call (median of 20, host clock, synchronised): card "
+        + ", ".join(f"{k} {v:.3f}" for k, v in card_ms.items())
+        + "; numpy on the host "
+        + ", ".join(f"{k} {v:.3f}" for k, v in numpy_ms.items()))
 
 
 WORKERS = {"11a": _worker_11a, "11c": _worker_11c, "11d": _worker_11d}
@@ -3131,6 +3280,7 @@ def main() -> int:
         sharded_strategies(args.seed, Path(tmp) / "run11d")
         entered = entry_points()
         device_resample(args.seed)
+    acoustic_heads(args.seed)
     assert int8["launches"] > 0
     assert "jax" not in sys.modules
     assert not any(m.split(".")[0] == "audio_processor_tpu"

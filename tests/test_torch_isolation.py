@@ -67,6 +67,9 @@ def test_importing_the_port_loads_no_jax_and_no_jax_package():
         "parallel.multi_device", "parallel.pipeline", "parallel.launch",
         "entry")} <= set(out["modules"])
     assert out["bad"] == []
+    # The profilers of the two host-side paths are among the scripts.
+    assert {REPO / "tools" / f"{t}_torch.py" for t in (
+        "profile_e2e", "profile_message_path")} <= set(SCRIPTS)
 
 
 @pytest.mark.parametrize("root", ["audio_processor_tpu_torch", "scripts"])

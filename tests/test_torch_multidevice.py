@@ -119,7 +119,7 @@ for job in jobs:
         out[name] = {"loss": float(loss), "blob": blob, "owned": owned,
                      "mesh": mesh.shape}
     elif kind == "pipeline":
-        mesh = make_stage_mesh(world)
+        mesh = make_stage_mesh(world, device="cpu")
         model = model_of("cfg_pp")
         feats, fmask = batch["features"], batch["feature_mask"].bool()
         fwd = make_pipelined_forward(model.cfg, mesh, job["micro"])
@@ -511,8 +511,8 @@ def test_data_parallel_engine_matches_one_device_and_jax():
 def test_mesh_shapes_and_manager():
     """make_mesh over explicit devices, the manager's mesh from
     ``mesh_shape`` (with a 'seq' axis), the visible device count (the
-    CPU here) and the engine inputs' split, and too few devices
-    refused."""
+    CPU here) and the engine inputs' split, and too few devices (here no
+    card, with no CPU devices asked for) refused."""
     from audio_processor_tpu_torch.parallel.multi_device import (
         data_shardings, get_optimal_device_count,
     )
@@ -528,8 +528,10 @@ def test_mesh_shapes_and_manager():
     assert get_optimal_device_count() == get_optimal_device_count(4) == 1
     assert data_shardings(mesh)["buf3"] == ("data", None, None)
     assert mesh.coordinate("data") == 0 and mesh.group("data") is None
-    with pytest.raises(RuntimeError, match="needs 4 devices"):
+    with pytest.raises(RuntimeError, match="no CUDA device is visible"):
         make_mesh(n_devices=4)
+    with pytest.raises(RuntimeError, match="needs 4 devices"):
+        make_mesh(n_devices=4, devices=["cpu"] * 2)
     with pytest.raises(ValueError, match="2x1x1"):
         make_mesh(n_devices=3, data=2, devices=["cpu"] * 3)
 
