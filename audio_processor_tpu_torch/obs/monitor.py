@@ -4,8 +4,10 @@ Daemon thread sampling host RAM/CPU, device memory (torch's CUDA
 allocator's and the device's memory counters for the processor's device) and
 registered callbacks (queue depths), with throughput computation
 (files/h, audio-hours/h), bounded histories, JSON reports, and the
-advisory batch/worker tuners. Only :func:`device_memory_stats` differs
-from the reference, which reads the JAX devices' memory stats.
+advisory batch/worker tuners. :func:`device_memory_stats` reads torch's
+memory counters where the reference reads the JAX devices'; the report
+gains a ``stages`` section (obs/profiler.stage_summary) when spans were
+recorded.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ from dataclasses import dataclass
 from datetime import datetime
 from pathlib import Path
 from typing import Any, Callable, Dict, List, Optional
+
+from audio_processor_tpu_torch.obs import profiler
 
 logger = logging.getLogger(__name__)
 
@@ -209,6 +213,9 @@ class PerformanceMonitor:
                 "file_times": list(self.file_times),
                 "callbacks": list(self.callback_history),
             }
+        stages = profiler.stage_summary()
+        if stages is not None:
+            report["stages"] = stages
         path.write_text(json.dumps(report, indent=2, default=str))
         logger.info("Performance report written to %s", path)
         return path
@@ -228,69 +235,6 @@ class PerformanceMonitor:
             return min(int(self.config.get("max_auto_batch_size", 64)),
                        current * 2)
         return current
-
-    def get_memory_recommendations(self) -> Dict[str, Any]:
-        """Advisory memory guidance (reference:
-        performance_monitor.py:306-331)."""
-        recs: Dict[str, Any] = {"recommendations": []}
-        try:
-            import psutil
-
-            vm = psutil.virtual_memory()
-            recs["current_memory_percent"] = vm.percent
-            if vm.percent > 85:
-                recs["recommendations"].append(
-                    "reduce file_batch_size or io_workers "
-                    "(host memory pressure)")
-            if self.peaks["memory_percent"] > 90:
-                recs["recommendations"].append(
-                    "peak memory exceeded 90%; lower max_memory_gb "
-                    "threshold to throttle earlier")
-        except ImportError:
-            pass
-        for d in device_memory_stats(self.device):
-            used, limit = d.get("bytes_in_use"), d.get("bytes_limit")
-            if used and limit and used / limit > 0.9:
-                recs["recommendations"].append(
-                    f"{d['device']}: HBM >90% used; reduce "
-                    "chunk_batch_size or length buckets")
-        if not recs["recommendations"]:
-            recs["recommendations"].append("memory usage is healthy")
-        return recs
-
-    def get_performance_recommendations(self, throughput: float,
-                                        target_throughput: float
-                                        ) -> List[str]:
-        """Advisory messages at the reference's thresholds
-        (performance_monitor.py:322-331)."""
-        recommendations = []
-        if throughput < target_throughput * 0.5:
-            recommendations.append(
-                "Throughput is very low. Check for bottlenecks.")
-        elif throughput < target_throughput * 0.8:
-            recommendations.append(
-                "Throughput is below target. Consider optimization.")
-        return recommendations
-
-    def get_current_gpu_memory(self) -> Dict[int, float]:
-        """Per-device memory in use, GB (reference contract:
-        performance_monitor.py:333-351 — nvidia-smi/torch replaced by
-        the device runtime's memory stats)."""
-        out: Dict[int, float] = {}
-        for i, d in enumerate(device_memory_stats(self.device)):
-            used = d.get("bytes_in_use")
-            out[i] = (used or 0.0) / (1024 ** 3)
-        return out
-
-    def log_gpu_memory_status(self) -> None:
-        """Log per-device memory (reference contract:
-        performance_monitor.py:353-363)."""
-        mem = self.get_current_gpu_memory()
-        if mem:
-            for dev_id, gb in mem.items():
-                logger.info("Device %d memory: %.2f GB", dev_id, gb)
-        else:
-            logger.info("No accelerator devices available")
 
     def optimize_worker_count(self, current: int) -> int:
         try:

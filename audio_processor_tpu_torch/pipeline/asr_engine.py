@@ -66,6 +66,7 @@ from audio_processor_tpu_torch.models.checkpoint import (
 from audio_processor_tpu_torch.models.tokenizer import (
     CTCVocab, batch_decode, decode_words,
 )
+from audio_processor_tpu_torch.obs import profiler
 from audio_processor_tpu_torch.pipeline.chunker import Chunk, chunk_batch
 from audio_processor_tpu_torch.utils.text import remove_special_characters
 
@@ -223,23 +224,28 @@ class ASREngine:
         """The fused device program on replica ``replica``: buf [N, 2,
         bucket+2*PAD] (agent, client; int16 or f32) and lengths [N] ->
         (ids [3N, L'], mask [3N, L'], acoustic features [N, 2, 38]), all on
-        the replica's device."""
-        x = buf.float()
-        if buf.dtype == torch.int16:
-            x = x / 32768.0
-        N = x.shape[0]
-        agent = x[:, 0, PAD:PAD + bucket_len]
-        client = x[:, 1, PAD:PAD + bucket_len]
-        mixed = (agent + client) * 0.5
-        rows = torch.stack([mixed, agent, client],
-                           dim=1).reshape(3 * N, bucket_len)
-        feats, mask = log_mel_frontend(rows, lengths.repeat_interleave(3))
-        feats, mask = pad_seq(feats, mask)
-        logits = self.replicas[replica](feats, mask, dtype=self.dtype,
-                                        attention_impl=self.attention_impl)
-        ids = w2v.greedy_ctc_ids(logits, mask, self.model_cfg.pad_token_id)
-        af = extract_features_batch(x.reshape(2 * N, -1),
-                                    lengths.repeat_interleave(2))
+        the replica's device. Span ``asr_fused``: the launches of one
+        device batch (``asr_fused.launches_per_batch``)."""
+        with profiler.span("asr_fused", bucket=bucket_len, replica=replica):
+            x = buf.float()
+            if buf.dtype == torch.int16:
+                x = x / 32768.0
+            N = x.shape[0]
+            agent = x[:, 0, PAD:PAD + bucket_len]
+            client = x[:, 1, PAD:PAD + bucket_len]
+            mixed = (agent + client) * 0.5
+            rows = torch.stack([mixed, agent, client],
+                               dim=1).reshape(3 * N, bucket_len)
+            feats, mask = log_mel_frontend(rows,
+                                           lengths.repeat_interleave(3))
+            feats, mask = pad_seq(feats, mask)
+            logits = self.replicas[replica](
+                feats, mask, dtype=self.dtype,
+                attention_impl=self.attention_impl)
+            ids = w2v.greedy_ctc_ids(logits, mask,
+                                     self.model_cfg.pad_token_id)
+            af = extract_features_batch(x.reshape(2 * N, -1),
+                                        lengths.repeat_interleave(2))
         self.dispatches += 1
         self.replica_dispatches[replica] += 1
         return ids, mask, af.reshape(N, 2, -1)
@@ -414,9 +420,16 @@ class ASREngine:
                 n = min(self.device_chunks, len(batch) - i)
                 subs.append(_SubBatch(batch, i, i + n))
 
+        # Prep runs on the pool's threads: its spans name this one's.
+        parent = profiler.current()
+
         def _prep(idx: int):
             s = subs[idx]
-            return self._prepare_fused_buffer(s, self._tail_size(len(s)))
+            n_dev = self._tail_size(len(s))
+            with profiler.span("asr_engine.prep", parent=parent,
+                               bucket=s.bucket_len, rows=len(s),
+                               rows_dispatched=n_dev):
+                return self._prepare_fused_buffer(s, n_dev)
 
         prep_pool = None
         prep_futs: Dict[int, object] = {}
@@ -426,6 +439,7 @@ class ASREngine:
                 prep_futs[k] = prep_pool.submit(_prep, k)
 
         pending = []  # (chunk_list, device_outputs, error)
+        done = []     # per pending entry: (bucket, its device events)
         try:
             for k, sub in enumerate(subs):
                 try:
@@ -436,6 +450,7 @@ class ASREngine:
                         self._warmed.add((sub.bucket_len,
                                           self.device_chunks))
                         pending.append((sub.chunks, out, None))
+                        done.append((sub.bucket_len, self._done_events()))
                         continue
                     if prep_pool is not None and k + PREP_AHEAD < len(subs):
                         prep_futs[k + PREP_AHEAD] = prep_pool.submit(
@@ -443,25 +458,52 @@ class ASREngine:
                     fut = prep_futs.pop(k, None)
                     buf, lengths = (fut.result() if fut is not None
                                     else _prep(k))
-                    out = self._run_fused(buf, lengths, sub.bucket_len)
+                    with profiler.span(
+                            "asr_engine.dispatch", bucket=sub.bucket_len,
+                            rows=len(sub), rows_dispatched=buf.shape[0],
+                            h2d_bytes=buf.nbytes + lengths.nbytes):
+                        out = self._run_fused(buf, lengths, sub.bucket_len)
                     self._warmed.add((sub.bucket_len, buf.shape[0]))
                     pending.append((sub.chunks, out, None))
+                    done.append((sub.bucket_len, self._done_events()))
                 except Exception as e:  # a failed batch fails its files
                     logger.exception("ASR dispatch failed (bucket %d): %s",
                                      sub.bucket_len, e)
                     pending.append((sub.chunks, None, str(e)))
+                    done.append((sub.bucket_len, None))
         finally:
             if prep_pool is not None:
                 prep_pool.shutdown(wait=False, cancel_futures=True)
 
-        return lambda: self._fetch_pending(chunks, pending, results)
+        return lambda: self._fetch_pending(chunks, pending, results, done)
 
-    def _fetch_pending(self, chunks, pending, results) -> List[Dict]:
+    def _done_events(self) -> Optional[list]:
+        """While spans record on a CUDA engine: one event per replica
+        device behind the work enqueued so far, so the fetch can time its
+        wait on the device (``asr_engine.fetch_wait``) apart from the
+        copies. None otherwise."""
+        if self.device.type != "cuda" or not profiler.recording():
+            return None
+        events = []
+        for dev in self.replica_devices:
+            e = torch.cuda.Event()
+            e.record(torch.cuda.current_stream(dev))
+            events.append(e)
+        return events
+
+    def _fetch_pending(self, chunks, pending, results,
+                       done=None) -> List[Dict]:
         """Fetch + decode in dispatch order, then assemble one row per
-        chunk (a failed sub-batch yields rows with ``error`` set)."""
-        for sub_chunks, out, err in pending:
+        chunk (a failed sub-batch yields rows with ``error`` set).
+        ``done`` holds each entry's (bucket, device events)."""
+        for k, (sub_chunks, out, err) in enumerate(pending):
             n = len(sub_chunks)
             if err is None:
+                bucket, events = done[k] if done else (None, None)
+                with profiler.span("asr_engine.fetch_wait", bucket=bucket,
+                                   rows=n):
+                    for e in events or ():
+                        e.synchronize()
                 try:
                     parts = out if isinstance(out, list) else [out]
                     ids, mask, *af = (
@@ -480,31 +522,32 @@ class ASREngine:
                         "error": err,
                     }
                 continue
-            ids, mask = ids[:3 * n], mask[:3 * n]
-            texts = batch_decode(ids, self.vocab, mask)
-            for j, c in enumerate(sub_chunks):
-                r = {
-                    "transcription_chunk":
-                        remove_special_characters(texts[3 * j]),
-                    "agent_transcription":
-                        remove_special_characters(texts[3 * j + 1]),
-                    "client_transcription":
-                        remove_special_characters(texts[3 * j + 2]),
-                    "error": "",
-                }
-                if af is not None:
-                    r["agent_acoustic_features"] = af[j, 0]
-                    r["client_acoustic_features"] = af[j, 1]
-                if self.emit_word_timestamps:
-                    for view, name in ((0, "mixed_words"),
-                                       (1, "agent_words"),
-                                       (2, "client_words")):
-                        row = ids[3 * j + view]
-                        valid = row[mask[3 * j + view].astype(bool)]
-                        r[name] = decode_words(
-                            valid, self.vocab, self._frame_sec,
-                            offset_sec=c.start_time)
-                results[id(c)] = r
+            with profiler.span("asr_engine.ctc_decode", rows=3 * n):
+                ids, mask = ids[:3 * n], mask[:3 * n]
+                texts = batch_decode(ids, self.vocab, mask)
+                for j, c in enumerate(sub_chunks):
+                    r = {
+                        "transcription_chunk":
+                            remove_special_characters(texts[3 * j]),
+                        "agent_transcription":
+                            remove_special_characters(texts[3 * j + 1]),
+                        "client_transcription":
+                            remove_special_characters(texts[3 * j + 2]),
+                        "error": "",
+                    }
+                    if af is not None:
+                        r["agent_acoustic_features"] = af[j, 0]
+                        r["client_acoustic_features"] = af[j, 1]
+                    if self.emit_word_timestamps:
+                        for view, name in ((0, "mixed_words"),
+                                           (1, "agent_words"),
+                                           (2, "client_words")):
+                            row = ids[3 * j + view]
+                            valid = row[mask[3 * j + view].astype(bool)]
+                            r[name] = decode_words(
+                                valid, self.vocab, self._frame_sec,
+                                offset_sec=c.start_time)
+                    results[id(c)] = r
 
         out_rows = []
         for c in chunks:

@@ -44,6 +44,7 @@ import torch
 from audio_processor_tpu_torch.host.csv_writer import save_results_csv
 from audio_processor_tpu_torch.io.decode import load_audio
 from audio_processor_tpu_torch.io.scanner import AudioFileScanner
+from audio_processor_tpu_torch.obs import profiler
 from audio_processor_tpu_torch.pipeline.batching import create_file_batches
 from audio_processor_tpu_torch.pipeline.chunker import prepare_and_split
 from audio_processor_tpu_torch.pipeline.markers import (
@@ -177,6 +178,10 @@ class DataProcessor:
         # callbacks, so read-modify-writes take the lock.
         self._device_inflight = 0
         self._device_inflight_lock = threading.Lock()
+        # Spans without a profiler (obs/profiler.py); sweeps are numbered
+        # so each file batch's spans carry (sweep, batch index).
+        self._record_spans = bool(config.get("enable_tracing", False))
+        self._sweeps = 0
 
     # ------------------------------------------------------------------
 
@@ -253,9 +258,10 @@ class DataProcessor:
 
     # ------------------------------------------------------------------
     def _decode_one(self, file_path: Path, preloaded=None,
-                    t_start: Optional[float] = None):
+                    t_start: Optional[float] = None, parent=None):
         """Decode + resample + chunk one call, with retries; ``t_start``
-        stamps the start of this file's decode for its latency."""
+        stamps the start of this file's decode for its latency, ``parent``
+        is its batch's decode span."""
         if t_start is None:
             t_start = time.perf_counter()
         last_error: Optional[Exception] = None
@@ -265,8 +271,10 @@ class DataProcessor:
                     waveform, sr = preloaded
                 else:
                     waveform, sr = load_audio(file_path)
-                waveform, sr, chunks = prepare_and_split(
-                    waveform, sr, file_path.name, self.config)
+                with profiler.span("chunker.prepare", parent=parent,
+                                   call=file_path.stem):
+                    waveform, sr, chunks = prepare_and_split(
+                        waveform, sr, file_path.name, self.config)
                 if not chunks:
                     raise RuntimeError("no_chunks")
                 return {"file": file_path, "chunks": chunks,
@@ -283,42 +291,56 @@ class DataProcessor:
                 "error": str(last_error), "waveform": None,
                 "t_start": t_start}
 
-    def _decode_batch(self, files: Sequence[Path]) -> List[Dict]:
+    def _decode_batch(self, files: Sequence[Path], batch=None,
+                      parent=None) -> List[Dict]:
         """Decode a file batch. WAVs go through the native C++ batch
         reader in one GIL-free call (io/native.py); everything else
-        (OGG, fallback, retries) uses the per-file thread pool."""
+        (OGG, fallback, retries) uses the per-file thread pool.
+        ``batch`` (sweep, index) and ``parent`` (the sweep's span) tag the
+        ``engine.decode`` span; its end is stamped on each call as
+        ``decoded_ns`` while spans record."""
         files = [Path(f) for f in files]
-        # per-file latency clock starts HERE: the native batch read
-        # below is the bulk of decode I/O for WAVs, and _decode_one's
-        # own stamp would miss it for preloaded files
-        t_batch_start = time.perf_counter()
-        preloaded: Dict[str, tuple] = {}
-        wavs = [f for f in files if f.suffix.lower() == ".wav"]
-        if wavs:
-            try:
-                from audio_processor_tpu_torch.io import native
+        with profiler.span("engine.decode", parent=parent, batch=batch,
+                           calls=len(files)) as sp:
+            # per-file latency clock starts HERE: the native batch read
+            # below is the bulk of decode I/O for WAVs, and _decode_one's
+            # own stamp would miss it for preloaded files
+            t_batch_start = time.perf_counter()
+            preloaded: Dict[str, tuple] = {}
+            wavs = [f for f in files if f.suffix.lower() == ".wav"]
+            if wavs:
+                try:
+                    from audio_processor_tpu_torch.io import native
 
-                if native.available():
-                    for f, out in zip(wavs, native.read_wav_batch(
-                            wavs, n_threads=min(self.io_workers, 16))):
-                        if out is not None:
-                            preloaded[str(f)] = out
-            except Exception as e:
-                logger.debug("native batch read unavailable: %s", e)
+                    if native.available():
+                        with profiler.span("io.native_read",
+                                           files=len(wavs)):
+                            read = native.read_wav_batch(
+                                wavs, n_threads=min(self.io_workers, 16))
+                        for f, out in zip(wavs, read):
+                            if out is not None:
+                                preloaded[str(f)] = out
+                except Exception as e:
+                    logger.debug("native batch read unavailable: %s", e)
 
-        def decode(f: Path) -> Dict:
-            return self._decode_one(f, preloaded.get(str(f)),
-                                    t_start=t_batch_start
-                                    if str(f) in preloaded else None)
+            def decode(f: Path) -> Dict:
+                return self._decode_one(f, preloaded.get(str(f)),
+                                        t_start=t_batch_start
+                                        if str(f) in preloaded else None,
+                                        parent=sp)
 
-        # Processor-lifetime pool (like _analysis_pool): a fresh
-        # executor per batch paid thread spawn/join churn on the hot
-        # prefetch path of every batch.
-        if self._decode_pool is None:
-            self._decode_pool = ThreadPoolExecutor(
-                max_workers=self.io_workers,
-                thread_name_prefix="decode")
-        return list(self._decode_pool.map(decode, files))
+            # Processor-lifetime pool (like _analysis_pool): a fresh
+            # executor per batch paid thread spawn/join churn on the hot
+            # prefetch path of every batch.
+            if self._decode_pool is None:
+                self._decode_pool = ThreadPoolExecutor(
+                    max_workers=self.io_workers,
+                    thread_name_prefix="decode")
+            decoded = list(self._decode_pool.map(decode, files))
+        if sp is not None:
+            for d in decoded:
+                d["decoded_ns"] = sp.t1
+        return decoded
 
     # ------------------------------------------------------------------
     def process_file_batch(self, batch_id: int, files: Sequence[Path],
@@ -332,214 +354,248 @@ class DataProcessor:
         return self._analysis_stage(ctx)
 
     def _asr_stage(self, batch_id: int, files: Sequence[Path],
-                   decoded: Optional[List[Dict]] = None
-                   ) -> Optional[Dict[str, Any]]:
+                   decoded: Optional[List[Dict]] = None, batch=None,
+                   parent=None) -> Optional[Dict[str, Any]]:
         """Device stage: decode accounting + call rows + batched ASR.
         Returns the batch context for _analysis_stage, or None when the
-        stage itself failed (already counted toward the error gate)."""
-        logger.info("Processing batch %d with %d files",
-                    batch_id + 1, len(files))
-        batch_t0 = time.perf_counter()
-        with self._in_flight_lock:
-            self._in_flight.update(str(f) for f in files)
-        try:
-            if decoded is None:
-                decoded = self._decode_batch(files)
-
-            all_chunks = []
-            batch_failed: Dict[str, str] = {}
-            for d in decoded:
-                if not d["chunks"]:
-                    err = d.get("error", "empty_chunks_after_retries")
-                    batch_failed[str(d["file"])] = err
-                    self.failed_files.append({
-                        "filename": d["file"].name,
-                        "path": str(d["file"]),
-                        "error": err, "chunks": []})
-            # Per-file failures count toward the abort gate, matching
-            # the reference's per-task error accounting
-            # (pipeline.py:409-427).
-            self._bump("errors", len(batch_failed))
-            for d in decoded:
-                if str(d["file"]) in batch_failed:
-                    continue
-                all_chunks.extend(d["chunks"])
-
-            # Async fetch split: dispatch the device work here (prep +
-            # upload + enqueue, returns once queued) and hand the fetch
-            # closure to the analysis stage — batch N+1's device
-            # dispatch then overlaps batch N's fetch/decode/sentiment
-            # instead of idling the chip behind host-side result
-            # handling. Sync fallback for engines without
-            # dispatch_chunks (tests, facades). files_processed is
-            # counted in _analysis_stage when the outcome is known —
-            # counting per ATTEMPT here double-counted batches whose
-            # device fetch failed and retried next sweep.
-            fetch = None
-            results: List[Dict] = []
-            if not all_chunks:
-                pass
-            elif self._async_fetch and hasattr(self.asr_engine,
-                                               "dispatch_chunks"):
-                fetch = self.asr_engine.dispatch_chunks(all_chunks)
-            else:
-                results = self.asr_engine.transcribe_chunks(all_chunks)
-                self._bump("chunks_processed", len(results))
-            return {"batch_id": batch_id, "files": files,
-                    "decoded": decoded, "results": results,
-                    "fetch": fetch,
-                    "batch_failed": batch_failed, "batch_t0": batch_t0}
-        except Exception as e:
-            logger.exception("Error processing batch %d: %s",
-                             batch_id + 1, e)
-            self._bump("errors")
+        stage itself failed (already counted toward the error gate).
+        ``batch`` and ``parent`` tag its spans as in _decode_batch."""
+        with profiler.span("engine.device_stage", parent=parent,
+                           batch=batch) as sp:
+            if sp is not None and decoded and "decoded_ns" in decoded[0]:
+                profiler.record("engine.queue.device",
+                                decoded[0]["decoded_ns"], sp.t0,
+                                parent=parent, batch=batch)
+            logger.info("Processing batch %d with %d files",
+                        batch_id + 1, len(files))
+            batch_t0 = time.perf_counter()
             with self._in_flight_lock:
-                self._in_flight.difference_update(str(f) for f in files)
-            return None
+                self._in_flight.update(str(f) for f in files)
+            try:
+                if decoded is None:
+                    decoded = self._decode_batch(files, batch)
+
+                all_chunks = []
+                batch_failed: Dict[str, str] = {}
+                for d in decoded:
+                    if not d["chunks"]:
+                        err = d.get("error", "empty_chunks_after_retries")
+                        batch_failed[str(d["file"])] = err
+                        self.failed_files.append({
+                            "filename": d["file"].name,
+                            "path": str(d["file"]),
+                            "error": err, "chunks": []})
+                # Per-file failures count toward the abort gate, matching
+                # the reference's per-task error accounting
+                # (pipeline.py:409-427).
+                self._bump("errors", len(batch_failed))
+                for d in decoded:
+                    if str(d["file"]) in batch_failed:
+                        continue
+                    all_chunks.extend(d["chunks"])
+
+                # Async fetch split: dispatch the device work here (prep +
+                # upload + enqueue, returns once queued) and hand the fetch
+                # closure to the analysis stage — batch N+1's device
+                # dispatch then overlaps batch N's fetch/decode/sentiment
+                # instead of idling the chip behind host-side result
+                # handling. Sync fallback for engines without
+                # dispatch_chunks (tests, facades). files_processed is
+                # counted in _analysis_stage when the outcome is known —
+                # counting per ATTEMPT here double-counted batches whose
+                # device fetch failed and retried next sweep.
+                fetch = None
+                results: List[Dict] = []
+                if not all_chunks:
+                    pass
+                elif self._async_fetch and hasattr(self.asr_engine,
+                                                   "dispatch_chunks"):
+                    fetch = self.asr_engine.dispatch_chunks(all_chunks)
+                else:
+                    results = self.asr_engine.transcribe_chunks(all_chunks)
+                    self._bump("chunks_processed", len(results))
+                return {"batch_id": batch_id, "files": files,
+                        "decoded": decoded, "results": results,
+                        "fetch": fetch,
+                        "batch_failed": batch_failed, "batch_t0": batch_t0,
+                        "trace": (parent, batch, sp)}
+            except Exception as e:
+                logger.exception("Error processing batch %d: %s",
+                                 batch_id + 1, e)
+                self._bump("errors")
+                with self._in_flight_lock:
+                    self._in_flight.difference_update(str(f) for f in files)
+                return None
 
     def _analysis_stage(self, ctx: Dict[str, Any]) -> int:
         """Host/analysis stage: sentiment + persistence + markers +
         reports for one batch. Runs on the analysis worker so the
         device stage of the NEXT batch overlaps it."""
-        batch_id, files = ctx["batch_id"], ctx["files"]
-        decoded, results = ctx["decoded"], ctx["results"]
-        batch_failed = ctx["batch_failed"]
-        try:
-            fetch = ctx.get("fetch")
-            if fetch is not None:
-                # Realize the async device results (see _asr_stage);
-                # by now the NEXT batch is usually already executing
-                # on the device behind this fetch.
-                try:
-                    results = ctx["results"] = fetch()
-                except Exception as e:
-                    logger.exception("Device fetch failed for batch "
-                                     "%d: %s", batch_id + 1, e)
-                    self._bump("errors")
-                    # Batch-level device failure: mirror the sync
-                    # path (an exception from transcribe_chunks makes
-                    # _asr_stage return None — no markers, no success
-                    # counts), so the files stay unmarked and retry
-                    # on the next sweep instead of being silently
-                    # marked processed with zero rows. Decode-failed
-                    # files ARE marked failed first — re-decoding
-                    # them next sweep would fail again and duplicate
-                    # their failed_files entries.
-                    marked = 0
-                    for d in decoded:
-                        err = batch_failed.get(str(d["file"]))
-                        if err is not None:
-                            self._mark_failed_file(d["file"], err)
-                            marked += 1
-                    self._bump("files_processed", marked)
-                    return 0
-                self._bump("chunks_processed", len(results))
-            # Per-chunk device errors (dispatch/fetch exceptions are
-            # swallowed into rows with 'error' set,
-            # asr_engine._fetch_pending): a file whose chunks carry
-            # errors must fail, not be marked .done with empty
-            # transcriptions — that would silently drop the file
-            # forever and keep the max_errors gate blind to a dying
-            # device (reference fails the whole file on any chunk
-            # error, audio_processor.py:247-309).
-            chunk_errors: Dict[str, str] = {}
-            for r in results:
-                if r.get("error"):
-                    chunk_errors.setdefault(r.get("file_name", ""),
-                                            r["error"])
-            if chunk_errors:
-                for d in decoded:
-                    fp = str(d["file"])
-                    err = chunk_errors.get(d["file"].name)
-                    if err and fp not in batch_failed:
-                        batch_failed[fp] = f"asr_chunk_error: {err}"
-                        self.failed_files.append({
-                            "filename": d["file"].name,
-                            "path": fp,
-                            "error": batch_failed[fp], "chunks": []})
-                        self._bump("errors")
-                failed_names = {Path(f).name for f in batch_failed}
-                results = [r for r in results
-                           if r.get("file_name") not in failed_names]
-            # Call rows are written here, NOT on the device-stage
-            # worker: a slow or reconnecting database must never stall
-            # the next batch's device dispatch. They go in before the
-            # sentiment stage so chunk rows always find their call row
-            # (with the real duration, not the lazy NULL-duration row
-            # _save_chunks_to_database would create).
-            if self.db_manager is not None:
-                for d in decoded:
-                    if str(d["file"]) in batch_failed:
-                        continue
+        parent, batch, device_span = ctx.get("trace", (None, None, None))
+        with profiler.span("engine.analysis", parent=parent, batch=batch,
+                           audio_s=sum(d["duration"]
+                                       for d in ctx["decoded"])) as sp:
+            if sp is not None and device_span is not None:
+                profiler.record("engine.queue.analysis", device_span.t1,
+                                sp.t0, parent=parent, batch=batch)
+            batch_id, files = ctx["batch_id"], ctx["files"]
+            decoded, results = ctx["decoded"], ctx["results"]
+            batch_failed = ctx["batch_failed"]
+            try:
+                fetch = ctx.get("fetch")
+                if fetch is not None:
+                    # Realize the async device results (see _asr_stage);
+                    # by now the NEXT batch is usually already executing
+                    # on the device behind this fetch.
                     try:
-                        self.db_manager.insert_call({
-                            "id_enregistrement": d["file"].stem,
-                            "duration_seconds": d["duration"],
-                            "topics": "", "emotion_client_globale": "",
-                            "ton_agent_global": ""})
+                        results = ctx["results"] = fetch()
                     except Exception as e:
-                        logger.error("Failed to save call %s: %s",
-                                     d["file"].stem, e)
-            if self.config.get("save_intermediate_results", False) \
-                    and results:
-                self._save_intermediate_transcriptions(batch_id, results)
+                        logger.exception("Device fetch failed for batch "
+                                         "%d: %s", batch_id + 1, e)
+                        self._bump("errors")
+                        # Batch-level device failure: mirror the sync
+                        # path (an exception from transcribe_chunks makes
+                        # _asr_stage return None — no markers, no success
+                        # counts), so the files stay unmarked and retry
+                        # on the next sweep instead of being silently
+                        # marked processed with zero rows. Decode-failed
+                        # files ARE marked failed first — re-decoding
+                        # them next sweep would fail again and duplicate
+                        # their failed_files entries.
+                        marked = 0
+                        for d in decoded:
+                            err = batch_failed.get(str(d["file"]))
+                            if err is not None:
+                                self._mark_failed_file(d["file"], err)
+                                marked += 1
+                        self._bump("files_processed", marked)
+                        return 0
+                    self._bump("chunks_processed", len(results))
+                # Per-chunk device errors (dispatch/fetch exceptions are
+                # swallowed into rows with 'error' set,
+                # asr_engine._fetch_pending): a file whose chunks carry
+                # errors must fail, not be marked .done with empty
+                # transcriptions — that would silently drop the file
+                # forever and keep the max_errors gate blind to a dying
+                # device (reference fails the whole file on any chunk
+                # error, audio_processor.py:247-309).
+                chunk_errors: Dict[str, str] = {}
+                for r in results:
+                    if r.get("error"):
+                        chunk_errors.setdefault(r.get("file_name", ""),
+                                                r["error"])
+                if chunk_errors:
+                    for d in decoded:
+                        fp = str(d["file"])
+                        err = chunk_errors.get(d["file"].name)
+                        if err and fp not in batch_failed:
+                            batch_failed[fp] = f"asr_chunk_error: {err}"
+                            self.failed_files.append({
+                                "filename": d["file"].name,
+                                "path": fp,
+                                "error": batch_failed[fp], "chunks": []})
+                            self._bump("errors")
+                    failed_names = {Path(f).name for f in batch_failed}
+                    results = [r for r in results
+                               if r.get("file_name") not in failed_names]
+                # Call rows are written here, NOT on the device-stage
+                # worker: a slow or reconnecting database must never stall
+                # the next batch's device dispatch. They go in before the
+                # sentiment stage so chunk rows always find their call row
+                # (with the real duration, not the lazy NULL-duration row
+                # _save_chunks_to_database would create).
+                if self.db_manager is not None:
+                    with profiler.span("engine.persist", what="calls"):
+                        for d in decoded:
+                            if str(d["file"]) in batch_failed:
+                                continue
+                            try:
+                                self.db_manager.insert_call({
+                                    "id_enregistrement": d["file"].stem,
+                                    "duration_seconds": d["duration"],
+                                    "topics": "",
+                                    "emotion_client_globale": "",
+                                    "ton_agent_global": ""})
+                            except Exception as e:
+                                logger.error("Failed to save call %s: %s",
+                                             d["file"].stem, e)
+                if self.config.get("save_intermediate_results", False) \
+                        and results:
+                    with profiler.span("engine.persist",
+                                       what="intermediate"):
+                        self._save_intermediate_transcriptions(batch_id,
+                                                               results)
 
-            if self.sentiment_analyzer is not None and results:
-                results = self.sentiment_analyzer.analyze_batch_sentiment(
-                    results)
-            if self.config.get("save_sentiment_analysis", False) and results:
-                self._save_chunks_analysis(batch_id, results)
+                if self.sentiment_analyzer is not None and results:
+                    results = \
+                        self.sentiment_analyzer.analyze_batch_sentiment(
+                            results)
+                if self.config.get("save_sentiment_analysis", False) \
+                        and results:
+                    with profiler.span("engine.persist",
+                                       what="intermediate"):
+                        self._save_chunks_analysis(batch_id, results)
 
-            # Optional VAD message path (reference ships it disabled,
-            # audio_processor.py:354-358).
-            if self.config.get("enable_message_path", False) \
-                    and self.db_manager is not None:
-                self._run_message_path(decoded)
+                # Optional VAD message path (reference ships it disabled,
+                # audio_processor.py:354-358).
+                if self.config.get("enable_message_path", False) \
+                        and self.db_manager is not None:
+                    self._run_message_path(decoded)
 
-            # Per-file status + markers.
-            for d in decoded:
-                fp = d["file"]
-                err = batch_failed.get(str(fp))
-                if err is not None:
-                    self._mark_failed_file(fp, err)
-                else:
-                    self.markers.mark_processed(fp)
-                    self._bump("files_success")
-                    self._file_statuses.append(
-                        {"file": str(fp), "status": "success"})
-            self._bump("files_processed", len(files))
+                # Per-file status + markers.
+                with profiler.span("engine.persist", what="markers"):
+                    for d in decoded:
+                        fp = d["file"]
+                        err = batch_failed.get(str(fp))
+                        if err is not None:
+                            self._mark_failed_file(fp, err)
+                        else:
+                            self.markers.mark_processed(fp)
+                            self._bump("files_success")
+                            self._file_statuses.append(
+                                {"file": str(fp), "status": "success"})
+                self._bump("files_processed", len(files))
 
-            if self.config.get("save_csv_results", False):
-                self._append_csv_rows(results)
-            t_done = time.perf_counter()
-            batch_seconds = t_done - ctx["batch_t0"]
-            # Per-call latency: decode start (prefetch included) to
-            # analysis completion for THAT file — files entering the
-            # prefetcher at different times get different latencies,
-            # so p50/p95 over them are meaningful (files without a
-            # decode stamp fall back to batch residency).
-            latencies = [t_done - d.get("t_start", ctx["batch_t0"])
-                         for d in decoded]
-            self._file_latencies.extend(
-                latencies if latencies
-                else [batch_seconds] * len(files))
-            if self.monitor is not None:
-                self.monitor.record_batch(
-                    batch_id, num_files=len(files),
-                    num_chunks=len(results),
-                    seconds=batch_seconds,
-                    audio_seconds=sum(d["duration"] for d in decoded))
-                for d, lat in zip(decoded, latencies):
-                    self.monitor.record_file(d["file"].name, lat)
-            return len(files) - len(batch_failed)
-        except Exception as e:
-            logger.exception("Error in analysis for batch %d: %s",
-                             batch_id + 1, e)
-            self._bump("errors")
-            return 0
-        finally:
-            with self._in_flight_lock:
-                self._in_flight.difference_update(str(f) for f in files)
+                if self.config.get("save_csv_results", False):
+                    with profiler.span("engine.persist", what="csv"):
+                        self._append_csv_rows(results)
+                t_done = time.perf_counter()
+                batch_seconds = t_done - ctx["batch_t0"]
+                # Per-call latency: decode start (prefetch included) to
+                # analysis completion for THAT file — files entering the
+                # prefetcher at different times get different latencies,
+                # so p50/p95 over them are meaningful (files without a
+                # decode stamp fall back to batch residency).
+                latencies = [t_done - d.get("t_start", ctx["batch_t0"])
+                             for d in decoded]
+                self._file_latencies.extend(
+                    latencies if latencies
+                    else [batch_seconds] * len(files))
+                if sp is not None:
+                    for d in decoded:
+                        profiler.record(
+                            "engine.call",
+                            d.get("t_start", ctx["batch_t0"]) * 1e9,
+                            t_done * 1e9, parent=parent, batch=batch,
+                            call=d["file"].stem)
+                if self.monitor is not None:
+                    self.monitor.record_batch(
+                        batch_id, num_files=len(files),
+                        num_chunks=len(results),
+                        seconds=batch_seconds,
+                        audio_seconds=sum(d["duration"] for d in decoded))
+                    for d, lat in zip(decoded, latencies):
+                        self.monitor.record_file(d["file"].name, lat)
+                return len(files) - len(batch_failed)
+            except Exception as e:
+                logger.exception("Error in analysis for batch %d: %s",
+                                 batch_id + 1, e)
+                self._bump("errors")
+                return 0
+            finally:
+                with self._in_flight_lock:
+                    self._in_flight.difference_update(
+                        str(f) for f in files)
 
     def _run_message_path(self, decoded: List[Dict]) -> None:
         """VAD -> windows -> batched mono transcription -> message
@@ -720,94 +776,105 @@ class DataProcessor:
                         self._analysis_stage, f.result())
                 except RuntimeError:   # processor close()d since
                     logger.error("Late analysis dropped: pool closed")
-        try:
-            next_decode = prefetcher.submit(self._decode_batch, batches[0])
-            self._next_decode_fut = next_decode
-            for i, batch in enumerate(batches):
-                self.memory_manager.wait_for_memory()
-                # Backpressure on the async-fetch window: wait for the
-                # oldest pending analysis once max_inflight batches
-                # are dispatched but not yet analyzed.
-                pending_analysis = [f for f in analysis_futs
-                                    if not f.done()]
-                if len(pending_analysis) >= self._max_inflight:
+        self._sweeps += 1
+        sweep_no = self._sweeps
+        with profiler.recording_spans(self._record_spans), \
+                profiler.span("engine.sweep", sweep=sweep_no,
+                              files=len(filtered),
+                              batches=len(batches)) as sweep:
+            try:
+                next_decode = prefetcher.submit(
+                    self._decode_batch, batches[0], (sweep_no, 0), sweep)
+                self._next_decode_fut = next_decode
+                for i, batch in enumerate(batches):
+                    self.memory_manager.wait_for_memory()
+                    # Backpressure on the async-fetch window: wait for the
+                    # oldest pending analysis once max_inflight batches
+                    # are dispatched but not yet analyzed.
+                    pending_analysis = [f for f in analysis_futs
+                                        if not f.done()]
+                    if len(pending_analysis) >= self._max_inflight:
+                        try:
+                            with profiler.span("engine.backpressure",
+                                               batch=(sweep_no, i)):
+                                pending_analysis[0].result(timeout=timeout)
+                        except FuturesTimeoutError:
+                            # Flow control only — NOT an error: a slow
+                            # analysis (e.g. first-sweep BERT compiles
+                            # through a cold toolchain) is accounted once
+                            # at the drain loop if it truly hangs;
+                            # counting it here would double-count and
+                            # turn warm-in into phantom errors.
+                            logger.warning(
+                                "Analysis backlog slow (>%ds); continuing "
+                                "with a wider in-flight window", timeout)
                     try:
-                        pending_analysis[0].result(timeout=timeout)
+                        decoded = next_decode.result(timeout=timeout)
                     except FuturesTimeoutError:
-                        # Flow control only — NOT an error: a slow
-                        # analysis (e.g. first-sweep BERT compiles
-                        # through a cold toolchain) is accounted once
-                        # at the drain loop if it truly hangs;
-                        # counting it here would double-count and
-                        # turn warm-in into phantom errors.
-                        logger.warning(
-                            "Analysis backlog slow (>%ds); continuing "
-                            "with a wider in-flight window", timeout)
-                try:
-                    decoded = next_decode.result(timeout=timeout)
-                except FuturesTimeoutError:
-                    logger.error("Batch %d decode exceeded %ds timeout",
-                                 i + 1, timeout)
-                    self._bump("errors")
-                    decoded = None
-                self._queue_depths["decode_queue"] = max(
-                    0, len(batches) - i - 1)
-                if i + 1 < len(batches):
-                    next_decode = prefetcher.submit(
-                        self._decode_batch, batches[i + 1])
-                    self._next_decode_fut = next_decode
-                else:
-                    self._next_decode_fut = None
-                if decoded is not None:
-                    fut = device_pool.submit(
-                        self._asr_stage, i, batch, decoded)
-                    with self._device_inflight_lock:
-                        self._device_inflight += 1
-                        self._queue_depths["device_queue"] = \
-                            self._device_inflight
-                    try:
-                        ctx = fut.result(timeout=timeout)
+                        logger.error("Batch %d decode exceeded %ds timeout",
+                                     i + 1, timeout)
+                        self._bump("errors")
+                        decoded = None
+                    self._queue_depths["decode_queue"] = max(
+                        0, len(batches) - i - 1)
+                    if i + 1 < len(batches):
+                        next_decode = prefetcher.submit(
+                            self._decode_batch, batches[i + 1],
+                            (sweep_no, i + 1), sweep)
+                        self._next_decode_fut = next_decode
+                    else:
+                        self._next_decode_fut = None
+                    if decoded is not None:
+                        fut = device_pool.submit(
+                            self._asr_stage, i, batch, decoded,
+                            (sweep_no, i), sweep)
                         with self._device_inflight_lock:
-                            self._device_inflight -= 1
+                            self._device_inflight += 1
                             self._queue_depths["device_queue"] = \
                                 self._device_inflight
+                        try:
+                            ctx = fut.result(timeout=timeout)
+                            with self._device_inflight_lock:
+                                self._device_inflight -= 1
+                                self._queue_depths["device_queue"] = \
+                                    self._device_inflight
+                        except FuturesTimeoutError:
+                            logger.error(
+                                "Batch %d device work exceeded %ds timeout",
+                                i + 1, timeout)
+                            self._bump("errors")
+                            fut.add_done_callback(_late_analysis)
+                            ctx = None
+                        if ctx is not None:
+                            analysis_futs.append(analysis_pool.submit(
+                                self._analysis_stage, ctx))
+                    self._queue_depths["result_queue"] = sum(
+                        1 for f in analysis_futs if not f.done())
+                    with self._stats_lock:
+                        sweep_errors = (self.stats["errors"]
+                                        - errors_at_start)
+                    if sweep_errors >= max_errors:
+                        logger.error("Aborting after %d errors this sweep",
+                                     sweep_errors)
+                        break
+                    if (i + 1) % max(1, len(batches) // 10) == 0:
+                        logger.info("Progress: %d/%d batches done",
+                                    i + 1, len(batches))
+                for i, f in enumerate(analysis_futs):
+                    try:
+                        total_success += f.result(timeout=timeout)
                     except FuturesTimeoutError:
-                        logger.error(
-                            "Batch %d device work exceeded %ds timeout",
-                            i + 1, timeout)
+                        logger.error("Analysis stage exceeded %ds timeout",
+                                     timeout)
                         self._bump("errors")
-                        fut.add_done_callback(_late_analysis)
-                        ctx = None
-                    if ctx is not None:
-                        analysis_futs.append(analysis_pool.submit(
-                            self._analysis_stage, ctx))
-                self._queue_depths["result_queue"] = sum(
-                    1 for f in analysis_futs if not f.done())
-                with self._stats_lock:
-                    sweep_errors = (self.stats["errors"]
-                                    - errors_at_start)
-                if sweep_errors >= max_errors:
-                    logger.error("Aborting after %d errors this sweep",
-                                 sweep_errors)
-                    break
-                if (i + 1) % max(1, len(batches) // 10) == 0:
-                    logger.info("Progress: %d/%d batches done",
-                                i + 1, len(batches))
-            for i, f in enumerate(analysis_futs):
-                try:
-                    total_success += f.result(timeout=timeout)
-                except FuturesTimeoutError:
-                    logger.error("Analysis stage exceeded %ds timeout",
-                                 timeout)
-                    self._bump("errors")
-        finally:
-            # Don't join potentially-hung workers; leftover futures are
-            # cancelled and abandoned threads finish (or not) on their
-            # own without blocking the sweep. The analysis pool is the
-            # processor-lifetime executor (late analyses of abandoned
-            # batches land there) — it is NOT shut down per sweep.
-            prefetcher.shutdown(wait=False, cancel_futures=True)
-            device_pool.shutdown(wait=False, cancel_futures=True)
+            finally:
+                # Don't join potentially-hung workers; leftover futures are
+                # cancelled and abandoned threads finish (or not) on their
+                # own without blocking the sweep. The analysis pool is the
+                # processor-lifetime executor (late analyses of abandoned
+                # batches land there) — it is NOT shut down per sweep.
+                prefetcher.shutdown(wait=False, cancel_futures=True)
+                device_pool.shutdown(wait=False, cancel_futures=True)
         self._consult_tuners()
         return total_success
 

@@ -53,6 +53,7 @@ from audio_processor_tpu_torch.models.convert_hf import (
 from audio_processor_tpu_torch.models.hf_files import (
     read_config, read_state_dict,
 )
+from audio_processor_tpu_torch.obs import profiler
 from audio_processor_tpu_torch.pipeline.chunker import pick_bucket
 
 logger = logging.getLogger(__name__)
@@ -424,12 +425,14 @@ class SentimentAnalyzer:
         sr = int(self.config.get("target_sample_rate", 16000))
         # Both classifiers are dispatched before either is fetched, so the
         # two programs queue back to back on the device.
-        a_fetch = self.text_analyzer.dispatch_batch(
-            [c.get("agent_transcription", "") for c in chunks], "agent")
-        c_fetch = self.text_analyzer.dispatch_batch(
-            [c.get("client_transcription", "") for c in chunks], "client")
-        a_text = a_fetch()
-        c_text = c_fetch()
+        with profiler.span("sentiment.text", chunks=len(chunks)):
+            a_fetch = self.text_analyzer.dispatch_batch(
+                [c.get("agent_transcription", "") for c in chunks], "agent")
+            c_fetch = self.text_analyzer.dispatch_batch(
+                [c.get("client_transcription", "") for c in chunks],
+                "client")
+            a_text = a_fetch()
+            c_text = c_fetch()
 
         def acoustic(speaker):
             # Prefer the features the fused ASR program computed.
@@ -441,36 +444,38 @@ class SentimentAnalyzer:
                 [c.get(f"{speaker}_waveform") for c in chunks], sr,
                 speaker)
 
-        a_ac = acoustic("agent")
-        c_ac = acoustic("client")
+        with profiler.span("sentiment.acoustic", chunks=len(chunks)):
+            a_ac = acoustic("agent")
+            c_ac = acoustic("client")
 
         out = []
-        for i in range(len(chunks)):
-            r: Dict[str, Any] = {}
-            for speaker, t, a in (("agent", a_text[i], a_ac[i]),
-                                  ("client", c_text[i], c_ac[i])):
-                gate = t.get("prediction", "") != ""
+        with profiler.span("sentiment.fusion", chunks=len(chunks)):
+            for i in range(len(chunks)):
+                r: Dict[str, Any] = {}
+                for speaker, t, a in (("agent", a_text[i], a_ac[i]),
+                                      ("client", c_text[i], c_ac[i])):
+                    gate = t.get("prediction", "") != ""
+                    r.update({
+                        f"{speaker}_text_sentiment": t.get("prediction", ""),
+                        f"{speaker}_text_confidence": t.get("confidence", 0.0),
+                        f"{speaker}_text_probabilities":
+                            t.get("probabilities", []),
+                        f"{speaker}_acoustic_sentiment":
+                            a.get("prediction", "") if gate else "",
+                        f"{speaker}_acoustic_confidence":
+                            a.get("confidence", 0.0) if gate else 0.0,
+                        f"{speaker}_acoustic_probabilities":
+                            a.get("probabilities", []) if gate else [],
+                    })
+                af = self.late_fusion_analyzer.analyze_sentiment(r, "agent")
+                cf = self.late_fusion_analyzer.analyze_sentiment(r, "client")
                 r.update({
-                    f"{speaker}_text_sentiment": t.get("prediction", ""),
-                    f"{speaker}_text_confidence": t.get("confidence", 0.0),
-                    f"{speaker}_text_probabilities":
-                        t.get("probabilities", []),
-                    f"{speaker}_acoustic_sentiment":
-                        a.get("prediction", "") if gate else "",
-                    f"{speaker}_acoustic_confidence":
-                        a.get("confidence", 0.0) if gate else 0.0,
-                    f"{speaker}_acoustic_probabilities":
-                        a.get("probabilities", []) if gate else [],
+                    "agent_fusion_sentiment": af.get("prediction", ""),
+                    "agent_fusion_confidence": af.get("confidence", 0.0),
+                    "client_fusion_sentiment": cf.get("prediction", ""),
+                    "client_fusion_confidence": cf.get("confidence", 0.0),
                 })
-            af = self.late_fusion_analyzer.analyze_sentiment(r, "agent")
-            cf = self.late_fusion_analyzer.analyze_sentiment(r, "client")
-            r.update({
-                "agent_fusion_sentiment": af.get("prediction", ""),
-                "agent_fusion_confidence": af.get("confidence", 0.0),
-                "client_fusion_sentiment": cf.get("prediction", ""),
-                "client_fusion_confidence": cf.get("confidence", 0.0),
-            })
-            out.append(r)
+                out.append(r)
         return out
 
     def _fallback_individual_processing(self, chunks: List[Dict]
@@ -497,9 +502,11 @@ class SentimentAnalyzer:
     def _persist(self, chunks: List[Dict]) -> None:
         if not self.db_manager:
             return
-        self._save_chunks_to_database(chunks)
+        with profiler.span("engine.persist", what="chunks"):
+            self._save_chunks_to_database(chunks)
         try:
-            self._update_calls_aggregated_emotions(chunks)
+            with profiler.span("engine.persist", what="aggregates"):
+                self._update_calls_aggregated_emotions(chunks)
         except Exception as e:
             logger.error("Failed to update call-level emotions: %s", e)
 
