@@ -32,7 +32,7 @@ from audio_processor_tpu_torch.dsp.mfcc import (
     centered_window, mfcc_from_power_frames,
 )
 from audio_processor_tpu_torch.dsp.stft import (
-    frame_signal, power_spectrum, require_true_fp32,
+    device_table, frame_signal, power_spectrum, require_true_fp32,
 )
 
 FRAME_LENGTH = 400
@@ -136,8 +136,7 @@ def extract_features_batch(padded: torch.Tensor, lengths: torch.Tensor
     # ---- STFT (center=True semantics via host reflect pad) ------------
     nf2_max = Tbuck // HOP + 1
     sframes = frame_signal(x, N_FFT, HOP, nf2_max)             # [B,F2,512]
-    win = torch.from_numpy(
-        centered_window(FRAME_LENGTH, N_FFT).astype(np.float32)).to(dev)
+    win = device_table(centered_window, (FRAME_LENGTH, N_FFT), dev)
     sframes = sframes * win
     power = power_spectrum(sframes, N_FFT)                     # [B,F2,257]
 
@@ -146,9 +145,8 @@ def extract_features_batch(padded: torch.Tensor, lengths: torch.Tensor
              < nf2_valid[:, None])                             # [B,F2]
     mag = torch.sqrt(torch.clamp(power, min=0.0)) * smask[..., None]
 
-    freqs = torch.from_numpy(
-        np.linspace(0.0, sr / 2.0, N_FFT // 2 + 1).astype(np.float32)
-    ).to(dev)                                                  # [257]
+    freqs = device_table(np.linspace, (0.0, sr / 2.0, N_FFT // 2 + 1),
+                         dev)                                  # [257]
     energy = mag.sum(dim=-1) + 1e-8                            # [B,F2]
 
     centroid = (mag * freqs).sum(dim=-1) / energy

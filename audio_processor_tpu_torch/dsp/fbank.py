@@ -24,7 +24,8 @@ import numpy as np
 import torch
 
 from audio_processor_tpu_torch.dsp.stft import (
-    frame_signal, povey_window, power_spectrum, require_true_fp32,
+    device_table, frame_signal, povey_window, power_spectrum,
+    require_true_fp32,
 )
 
 FRAME_LENGTH = 400   # 25 ms @ 16 kHz
@@ -105,12 +106,11 @@ def log_mel_frontend(waveform: torch.Tensor, lengths: torch.Tensor
     pre = frames[..., 1:] - PREEMPHASIS * frames[..., :-1]
     first = frames[..., :1] * (1.0 - PREEMPHASIS)
     frames = torch.cat([first, pre], dim=-1)
-    window = torch.from_numpy(
-        povey_window(FRAME_LENGTH).astype(np.float32)).to(dev)
+    window = device_table(povey_window, (FRAME_LENGTH,), dev)
     frames = frames * window
 
     power = power_spectrum(frames, FFT_LENGTH)                 # [B,F,257]
-    mel = power @ torch.from_numpy(kaldi_mel_filters()).to(dev)  # [B,F,80]
+    mel = power @ device_table(kaldi_mel_filters, (), dev)     # [B,F,80]
     logmel = torch.log(torch.clamp(mel, min=MEL_FLOOR))
 
     # Masked per-utterance per-mel-bin normalization (ddof=1).

@@ -13,7 +13,7 @@ import functools
 import numpy as np
 import torch
 
-from audio_processor_tpu_torch.dsp.stft import hann_window
+from audio_processor_tpu_torch.dsp.stft import device_table, hann_window
 
 
 def hertz_to_htk_mel(freq):
@@ -72,7 +72,7 @@ def mfcc_from_power_frames(power: torch.Tensor, n_mfcc: int = 13,
     """[..., F, n_freqs] power spectrum -> [..., F, n_mfcc] (fp32
     matmuls, kept out of TF32 like the frontend's)."""
     dev = power.device
-    mel = power @ torch.from_numpy(
-        htk_mel_filters(power.shape[-1], n_mels, sample_rate)).to(dev)
+    mel = power @ device_table(
+        htk_mel_filters, (power.shape[-1], n_mels, sample_rate), dev)
     db = 10.0 * torch.log10(torch.clamp(mel, min=1e-10))
-    return db @ torch.from_numpy(dct_matrix(n_mfcc, n_mels)).to(dev)
+    return db @ device_table(dct_matrix, (n_mfcc, n_mels), dev)

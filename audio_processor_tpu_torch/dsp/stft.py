@@ -1,7 +1,8 @@
 """Framing and matmul-DFT building blocks (port of dsp/stft.py).
 
 The windows and DFT matrices are built on the host in numpy exactly as
-the reference builds them, then moved to the caller's device; framing
+the reference builds them, then copied to each device once
+(:func:`device_table`); framing
 is ``Tensor.unfold`` (a strided view, no gather). The DFT products are
 true fp32 matmuls (the reference's ``Precision.HIGHEST``): on CUDA they
 refuse to run while ``torch.backends.cuda.matmul.allow_tf32`` is on.
@@ -10,6 +11,7 @@ refuse to run while ``torch.backends.cuda.matmul.allow_tf32`` is on.
 from __future__ import annotations
 
 import functools
+from typing import Callable
 
 import numpy as np
 import torch
@@ -40,11 +42,25 @@ def dft_matrices_np(frame_length: int, fft_length: int) -> tuple:
             (-np.sin(ang)).astype(np.float32))
 
 
+@functools.lru_cache(maxsize=None)
+def device_table(make: Callable, args: tuple, device: torch.device):
+    """``make(*args)``, a float32 table (or tuple of tables) that depends
+    on its arguments alone, as tensors on ``device``, copied there once
+    per process. A copy from host memory on every call would wait for
+    the device's stream to drain, so the host could never enqueue ahead
+    of the card. Made outside inference mode, since the cache outlives
+    the call; callers must not write to the tables."""
+    tables = make(*args)
+    with torch.inference_mode(False):
+        out = tuple(torch.from_numpy(np.asarray(t, np.float32)).to(device)
+                    for t in (tables if isinstance(tables, tuple)
+                              else (tables,)))
+    return out if isinstance(tables, tuple) else out[0]
+
+
 def dft_matrices(frame_length: int, fft_length: int,
                  device: torch.device) -> tuple:
-    cos_m, msin_m = dft_matrices_np(frame_length, fft_length)
-    return (torch.from_numpy(cos_m).to(device),
-            torch.from_numpy(msin_m).to(device))
+    return device_table(dft_matrices_np, (frame_length, fft_length), device)
 
 
 def frame_signal(x: torch.Tensor, frame_length: int, hop: int,

@@ -5,13 +5,18 @@ which returns the launch's cudaError_t (0: launched), and
 ``const char* <name>_error(int)``. :func:`call` builds and loads the
 library on first use (``_build``), launches on the tensors' device and
 current stream, and raises on a non-zero code; :func:`check_operands`
-checks what every such interface assumes of the tensors it is handed.
+checks what every such interface assumes of the tensors it is handed;
+:func:`count_launch` counts a wrapper's launches, or, while the thread
+captures a CUDA graph, the capture's (:func:`tally_launches`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
+import threading
+from typing import Dict, Iterator
 
 import torch
 
@@ -19,6 +24,7 @@ from audio_processor_tpu_torch import _build
 
 # One letter per argument of ``<name>_fwd`` before the stream.
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
+_local = threading.local()
 
 
 @functools.lru_cache(maxsize=None)
@@ -78,3 +84,25 @@ def call(name: str, signature: str, device: torch.device, *args,
     if rc != 0:
         raise RuntimeError(f"{label or name} launch failed: cudaError {rc} "
                            f"({error(rc).decode()})")
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``; while this thread captures a CUDA
+    graph (:func:`tally_launches`), to the capture's tally instead, since
+    nothing runs until the graph is replayed."""
+    tally = getattr(_local, "tally", None)
+    if tally is None:
+        wrapper.launches += 1
+    else:
+        tally[wrapper] = tally.get(wrapper, 0) + 1
+
+
+@contextlib.contextmanager
+def tally_launches() -> Iterator[Dict]:
+    """Inside the block, this thread's :func:`count_launch` calls fill the
+    yielded {wrapper: launches} instead of the wrappers' counters."""
+    _local.tally = tally = {}
+    try:
+        yield tally
+    finally:
+        _local.tally = None

@@ -93,7 +93,7 @@ def _launch(q, k, v, ab, sm_scale: float) -> torch.Tensor:
         v.data_ptr(), None if ab is None else ab.data_ptr(),
         _AB_KIND[None if ab is None else ab.dtype], out.data_ptr(), B, H,
         L, float(sm_scale), int(q.dtype == torch.bfloat16))
-    flash_attention.launches += 1
+    _cuda_call.count_launch(flash_attention)
     return out
 
 

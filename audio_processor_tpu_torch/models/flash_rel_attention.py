@@ -22,7 +22,8 @@ Two implementations of one function live here:
   wrapper launches the kernel or raises.
 
 ``flash_rel_attention.launches`` counts kernel launches, so a run can
-show that it went through the kernel.
+show that it went through the kernel; each replay of a CUDA graph adds
+the launches its capture recorded.
 """
 
 from __future__ import annotations
@@ -110,7 +111,7 @@ def _launch(q, k, v, E, kv_mask, sm_scale: float, left: int,
         k.data_ptr(), v.data_ptr(), E.data_ptr(), kv_mask.data_ptr(),
         out.data_ptr(), B, H, L, num_buckets, left, float(sm_scale),
         int(q.dtype == torch.bfloat16))
-    flash_rel_attention.launches += 1
+    _cuda_call.count_launch(flash_rel_attention)
     return out
 
 

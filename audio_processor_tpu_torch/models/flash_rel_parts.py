@@ -175,7 +175,7 @@ def _launch(name: str, counter, q, k, v, s_rel, kv_mask,
         kv_mask.data_ptr() if mode.masked else None, out.data_ptr(), B, H,
         L, num_buckets, left, float(sm_scale), CONFIG[name],
         label=f"flash_rel_parts {name}")
-    counter.launches += 1
+    _cuda_call.count_launch(counter)
     return out
 
 

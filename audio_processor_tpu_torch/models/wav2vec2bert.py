@@ -33,13 +33,20 @@ Conventions kept from the JAX package:
   row-parallel products; over a 'seq' group each rank runs 1/sp of the
   frames and gathers keys, values and the conv's input where attention and
   the depthwise conv need the whole sequence, then the logits.
+- CUDA graphs: inference on a CUDA device (autograd off, no parallel
+  groups, no ``remat``) replays one captured graph per input shape
+  instead of launching each of the encoder's kernels from Python
+  (:meth:`Wav2Vec2Bert.forward`).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import itertools
+import logging
 import math
+import threading
 from typing import Any, Dict, NamedTuple, Optional
 
 import numpy as np
@@ -48,6 +55,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
+from audio_processor_tpu_torch.models import _cuda_call
 from audio_processor_tpu_torch.models.flash_attention import flash_attention
 from audio_processor_tpu_torch.models.flash_rel_attention import (
     flash_rel_attention,
@@ -55,10 +63,13 @@ from audio_processor_tpu_torch.models.flash_rel_attention import (
 from audio_processor_tpu_torch.models.quant import (
     QuantLinear, dense_int8, is_quantized, quantize_linears,
 )
+from audio_processor_tpu_torch.obs import profiler
 from audio_processor_tpu_torch.parallel.collectives import (
     copy_to_group, gather_partial, gather_replicated, group_rank, group_size,
     reduce_from_group,
 )
+
+logger = logging.getLogger(__name__)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -162,7 +173,9 @@ class FeedForward(nn.Module):
         return row_parallel(self.output_dense, h, self.tp)
 
 
-@functools.lru_cache(maxsize=32)
+# Unbounded: a captured CUDA graph reads a cached index by its address,
+# so an entry must never be evicted (one per attention length and offset).
+@functools.lru_cache(maxsize=None)
 def _distance_index(q_len: int, k_len: int, q_offset: int, left: int,
                     right: int, device: torch.device) -> torch.Tensor:
     """Static [Lq, Lk] map: (query i, key j) -> clipped-distance bucket,
@@ -335,6 +348,54 @@ class FeatureProjection(nn.Module):
                                     cfg.hidden_size)
 
 
+class _Graph(NamedTuple):
+    """One captured forward: its graph, static inputs and logits, and the
+    kernel-wrapper launches (wrapper -> count) that each replay makes."""
+
+    graph: Any
+    features: torch.Tensor
+    mask: torch.Tensor
+    logits: torch.Tensor
+    launches: Dict[Any, int]
+
+
+class _DeviceGraphs:
+    """A model's graphs on one device. They share one memory pool, so no
+    two replays may overlap on the card: ``lock`` covers the input copies,
+    the replay and the clone of its logits, and a replay on another stream
+    than the last one first waits on the last one's event."""
+
+    def __init__(self, device: torch.device):
+        self.entries: Dict[tuple, Optional[_Graph]] = {}   # None: eager
+        self.pool = torch.cuda.graph_pool_handle()
+        self.stream = torch.cuda.Stream(device)     # the capture stream
+        self.lock = threading.Lock()
+        self.last = None                # (stream, event) of the last replay
+
+
+class GraphCache:
+    """A model's CUDA graphs of its forward, per device, all over one set of
+    parameter storage: a key over other storage drops them. A copy or
+    pickle of the model starts with an empty cache."""
+
+    def __init__(self):
+        self.ptrs: Optional[tuple] = None
+        self.devices: Dict[torch.device, _DeviceGraphs] = {}
+        self.lock = threading.Lock()
+
+    def __reduce__(self):
+        return (GraphCache, ())
+
+    def on(self, device: torch.device, ptrs: tuple) -> _DeviceGraphs:
+        with self.lock:
+            if ptrs != self.ptrs:
+                self.ptrs, self.devices = ptrs, {}
+            dg = self.devices.get(device)
+            if dg is None:
+                dg = self.devices[device] = _DeviceGraphs(device)
+            return dg
+
+
 class Wav2Vec2Bert(nn.Module):
     """[B, L, 160] features (+ bool [B, L] mask) -> fp32 [B, L, vocab]."""
 
@@ -346,6 +407,7 @@ class Wav2Vec2Bert(nn.Module):
                                     for _ in range(cfg.num_hidden_layers))
         self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size)
         self.parallel = ParallelGroups()
+        self._graphs = GraphCache()
 
     def set_parallel(self, groups: ParallelGroups) -> None:
         """Compute over ``groups`` from now on (parallel/mesh.py
@@ -369,12 +431,110 @@ class Wav2Vec2Bert(nn.Module):
 
         Under sequence parallel every rank passes the whole rows; each
         keeps its 1/sp of the frames (the frames padded, masked, to a
-        multiple of sp) and the logits come back whole on every rank."""
+        multiple of sp) and the logits come back whole on every rank.
+
+        A CUDA input with autograd off, no parallel groups and no
+        ``remat`` runs as a CUDA graph, in span ``encoder.graph`` (``mode``
+        capture, replay or eager). The first call of a key
+        (:meth:`graph_key`) runs eagerly and returns that result, then
+        captures the key on a side stream; a later call copies its inputs
+        into the graph's, replays it on the current stream and returns a
+        copy of its logits. A key whose capture fails stays eager. Every
+        other call runs eagerly, outside the span."""
         impl = resolve_attention_impl(attention_impl, input_features.device)
         B, L, _ = input_features.shape
         if attention_mask is None:
             attention_mask = torch.ones(B, L, dtype=torch.bool,
                                         device=input_features.device)
+        if not self.graphable(input_features, remat):
+            return self._encode(input_features, attention_mask, dtype, impl,
+                                remat)
+        with profiler.span("encoder.graph", rows=B, frames=L) as sp:
+            logits, mode = self._graph_forward(input_features,
+                                               attention_mask, dtype, impl)
+            if sp is not None:
+                sp.attrs["mode"] = mode
+        return logits
+
+    def graphable(self, x: torch.Tensor, remat: bool = False) -> bool:
+        """Whether forward on ``x`` may run as a CUDA graph."""
+        return (x.is_cuda and not torch.is_grad_enabled() and not remat
+                and all(g is None for g in self.parallel))
+
+    def graph_key(self, x: torch.Tensor, mask: torch.Tensor,
+                  dtype: torch.dtype, impl: str) -> tuple:
+        """A graph's key: device, input shapes and dtypes, compute dtype,
+        attention path, and the storage of every parameter and buffer. A
+        tensor reassigned to other storage makes another key; an in-place
+        update does not, and a replay reads it."""
+        ptrs = tuple(t.data_ptr() for t in itertools.chain(
+            self.parameters(), self.buffers()))
+        return (x.device, tuple(x.shape), x.dtype, tuple(mask.shape),
+                mask.dtype, dtype, impl, ptrs)
+
+    def _graph_forward(self, x, mask, dtype, impl):
+        key = self.graph_key(x, mask, dtype, impl)
+        dg = self._graphs.on(x.device, key[-1])
+        entry = dg.entries.get(key, False)
+        if entry is None:
+            return self._encode(x, mask, dtype, impl), "eager"
+        if entry is False:
+            # The eager run first fills the lazy state (kernel attributes,
+            # library handles, cached indexes) that a capture cannot make.
+            logits = self._encode(x, mask, dtype, impl)
+            with dg.lock:
+                if key not in dg.entries:
+                    dg.entries[key] = self._capture(dg, x, mask, dtype, impl)
+            return logits, "capture" if dg.entries[key] else "eager"
+        with dg.lock:
+            cur = torch.cuda.current_stream(x.device)
+            if dg.last is not None and dg.last[0] != cur:
+                cur.wait_event(dg.last[1])
+            entry.features.copy_(x)
+            entry.mask.copy_(mask)
+            entry.graph.replay()
+            logits = entry.logits.clone()
+            done = torch.cuda.Event()
+            done.record(cur)
+            dg.last = (cur, done)
+        for wrapper, n in entry.launches.items():
+            wrapper.launches += n
+        return logits, "replay"
+
+    def _capture(self, dg: _DeviceGraphs, x, mask, dtype,
+                 impl) -> Optional[_Graph]:
+        """Capture forward at x's and mask's shapes on ``dg``'s side stream
+        into its pool; None (and one warning) if the capture fails."""
+        dev = x.device
+        try:
+            with torch.inference_mode(False):   # copied into at any mode
+                features = torch.empty(x.shape, dtype=x.dtype, device=dev)
+                static_mask = torch.empty(mask.shape, dtype=mask.dtype,
+                                          device=dev)
+            cur = torch.cuda.current_stream(dev)
+            dg.stream.wait_stream(cur)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.device(dev), torch.cuda.stream(dg.stream), \
+                    _cuda_call.tally_launches() as launches:
+                graph.capture_begin(pool=dg.pool,
+                                    capture_error_mode="thread_local")
+                try:
+                    logits = self._encode(features, static_mask, dtype, impl)
+                finally:
+                    graph.capture_end()
+            cur.wait_stream(dg.stream)
+        except Exception:   # any failure leaves this key eager
+            logger.warning("CUDA graph capture of the encoder at %s on %s "
+                           "failed; that shape runs eagerly", tuple(x.shape),
+                           dev, exc_info=True)
+            return None
+        return _Graph(graph, features, static_mask, logits, launches)
+
+    def _encode(self, input_features: torch.Tensor,
+                attention_mask: torch.Tensor, dtype: torch.dtype, impl: str,
+                remat: bool = False) -> torch.Tensor:
+        """The encoder's eager body (forward's arguments resolved)."""
+        B, L, _ = input_features.shape
         pad_mask = attention_mask.float()
         attn_bias = ((1.0 - pad_mask) * -1e9)[:, None, None, :]
         x = input_features

@@ -10,7 +10,14 @@ Kept from the reference: static length buckets, power-of-two tail
 batches, and the dispatch/fetch split (:meth:`dispatch_chunks` enqueues
 every sub-batch on the device and returns a closure that fetches and
 decodes, so the pipeline overlaps batch N+1's device work with batch
-N's host work; CUDA launches are asynchronous like JAX dispatch).
+N's host work; CUDA launches are asynchronous like JAX dispatch). The
+encoder replays a CUDA graph per shape (models/wav2vec2bert.py), so
+enqueueing takes far less time than the card runs; the engine keeps at
+most ``PACE_DEPTH`` device batches queued behind the one running, so a
+sweep cannot run ahead of the card by more than that. The batches run on
+a stream of the engine's own per device, so the process's other device
+work (the analysis stage's classifiers, the message path) neither queues
+behind them nor holds them up.
 
 The mono-rows program (:meth:`ASREngine._mono`, the reference's
 ``_mono_fn``) transcribes [N, L] rows of one view: the VAD segments of
@@ -40,9 +47,11 @@ processes by ``owns_call`` (pipeline/engine.py).
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import logging
-from collections import Counter
+import threading
+from collections import Counter, deque
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence
@@ -76,6 +85,7 @@ SEQ_MULTIPLE = 256   # encoder frames are padded to this (the reference's)
 # so that every batch's L takes the kernel of its attention path.
 assert all(SEQ_MULTIPLE % m == 0 for m in w2v.KERNEL_L_MULTIPLE.values())
 PREP_AHEAD = 3       # host prep runs this many sub-batches ahead
+PACE_DEPTH = 1       # device batches queued behind the running one
 
 
 def pad_seq(feats: torch.Tensor, mask: torch.Tensor):
@@ -195,6 +205,15 @@ class ASREngine:
         self.dispatches = 0
         self.mono_dispatches = 0
         self.mono_shapes: Counter = Counter()
+        # Completion events of the last device batches dispatched through
+        # dispatch_chunks, oldest first (one list per batch: an event per
+        # replica), across calls: what _pace waits on.
+        self._queued: deque = deque()
+        self._queued_lock = threading.Lock()
+        # The stream dispatch_chunks enqueues on, per CUDA device.
+        self._streams = {d: torch.cuda.Stream(d)
+                         for d in dict.fromkeys(replica_devices)
+                         if d.type == "cuda"}
 
     # ------------------------------------------------------------------
     def _load_or_init(self):
@@ -440,17 +459,19 @@ class ASREngine:
 
         pending = []  # (chunk_list, device_outputs, error)
         done = []     # per pending entry: (bucket, its device events)
+        streams = self._on_streams()
         try:
             for k, sub in enumerate(subs):
                 try:
                     if not self.fuse_acoustic_features:
                         rows, lengths = self._prepare_rows(sub)
+                        self._pace()
                         out = self._mono(self._upload(rows),
                                          self._upload(lengths), beam=False)
                         self._warmed.add((sub.bucket_len,
                                           self.device_chunks))
                         pending.append((sub.chunks, out, None))
-                        done.append((sub.bucket_len, self._done_events()))
+                        done.append((sub.bucket_len, self._queue_events()))
                         continue
                     if prep_pool is not None and k + PREP_AHEAD < len(subs):
                         prep_futs[k + PREP_AHEAD] = prep_pool.submit(
@@ -462,34 +483,66 @@ class ASREngine:
                             "asr_engine.dispatch", bucket=sub.bucket_len,
                             rows=len(sub), rows_dispatched=buf.shape[0],
                             h2d_bytes=buf.nbytes + lengths.nbytes):
+                        self._pace()
                         out = self._run_fused(buf, lengths, sub.bucket_len)
                     self._warmed.add((sub.bucket_len, buf.shape[0]))
                     pending.append((sub.chunks, out, None))
-                    done.append((sub.bucket_len, self._done_events()))
+                    done.append((sub.bucket_len, self._queue_events()))
                 except Exception as e:  # a failed batch fails its files
                     logger.exception("ASR dispatch failed (bucket %d): %s",
                                      sub.bucket_len, e)
                     pending.append((sub.chunks, None, str(e)))
                     done.append((sub.bucket_len, None))
         finally:
+            streams.close()
             if prep_pool is not None:
                 prep_pool.shutdown(wait=False, cancel_futures=True)
 
         return lambda: self._fetch_pending(chunks, pending, results, done)
 
+    def _on_streams(self) -> contextlib.ExitStack:
+        """Make the engine's stream current on each of its CUDA devices."""
+        stack = contextlib.ExitStack()
+        for stream in self._streams.values():
+            stack.enter_context(torch.cuda.stream(stream))
+        return stack
+
     def _done_events(self) -> Optional[list]:
-        """While spans record on a CUDA engine: one event per replica
-        device behind the work enqueued so far, so the fetch can time its
-        wait on the device (``asr_engine.fetch_wait``) apart from the
-        copies. None otherwise."""
-        if self.device.type != "cuda" or not profiler.recording():
+        """On a CUDA engine: one event per replica device behind the work
+        enqueued so far (blocking: a wait yields the CPU). The fetch syncs
+        on them apart from the copies (``asr_engine.fetch_wait``), and
+        :meth:`_pace` waits on them. None on the CPU."""
+        if self.device.type != "cuda":
             return None
         events = []
         for dev in self.replica_devices:
-            e = torch.cuda.Event()
+            e = torch.cuda.Event(blocking=True)
             e.record(torch.cuda.current_stream(dev))
             events.append(e)
         return events
+
+    def _queue_events(self) -> Optional[list]:
+        """:meth:`_done_events` of the device batch just dispatched, also
+        queued for :meth:`_pace`."""
+        events = self._done_events()
+        if events is not None:
+            with self._queued_lock:
+                self._queued.append(events)
+        return events
+
+    def _pace(self) -> None:
+        """Before a device batch is enqueued: wait (span
+        ``asr_engine.pace``) until the card has finished the batch
+        ``PACE_DEPTH + 1`` before it, so at most ``PACE_DEPTH`` batches
+        are queued behind the one running. No events, no wait."""
+        while True:
+            with self._queued_lock:
+                if len(self._queued) <= PACE_DEPTH:
+                    return
+                events = self._queued.popleft()
+            with profiler.span("asr_engine.pace"):
+                for e in events:
+                    e.synchronize()
 
     def _fetch_pending(self, chunks, pending, results,
                        done=None) -> List[Dict]:

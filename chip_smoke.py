@@ -33,6 +33,16 @@ Phases, each of which fails the run (non-zero exit) on any error:
    (``scaled_dot_product_attention``: bare without a mask, full and
    kb640 with the additive mask of s_rel and kv_mask, norel with the kv
    mask's term alone), which the port never calls;
+3d. the encoder's CUDA graphs: at the full w2v-bert-2.0 width (random
+   weights from the seed), bf16, under ``flash_rel``, under ``flash`` and
+   with ``quantization: int8``, at every (rows, frames) the batch and
+   message paths dispatch (MESSAGE_SHAPES), with ragged masks:
+   ``Wav2Vec2Bert.forward`` captures on its first call and replays on
+   the next two, whose logits must equal the eager body's bit for bit
+   (the first replay's still equal after the second), and the kernel's
+   launch counter must advance by 24 on every call; prints, at 48 x 1280
+   under flash_rel, the host ms a call takes to return and the card ms
+   per call, eager and replayed;
 4. small reference: a tiny model through the port's ASR engine on the
    card (kernel path) and on the CPU (plain path), same weights and
    audio: masks equal, ids equal off near-ties, features close;
@@ -663,6 +673,73 @@ def _write_calls(root: Path, seed: int, n: int, dur: float,
         x[1] += 0.3 * ~on * np.sin(2 * np.pi * rng.uniform(150, 350) * t)
         wav.write(root / f"call-{i:02d}.wav", x.astype(np.float32), sr)
     return n * dur
+
+
+def graph_vs_eager(seed: int) -> dict:
+    """Phase 3d: the encoder's CUDA graph replays against its eager body,
+    bit for bit, at every main-path shape, under flash_rel, flash and
+    int8 (see the module docstring); the host and card ms per call at
+    48 x 1280 under flash_rel, eager and replayed."""
+    from audio_processor_tpu_torch.models import wav2vec2bert as w2v
+
+    dev = torch.device(DEVICE)
+    base = w2v.build_synthetic(w2v.W2VBertConfig(vocab_size=78), dev,
+                               seed=seed)
+    arms = [("flash_rel", base, "flash_rel_attention"),
+            ("flash", base, "flash_attention"),
+            ("int8", w2v.quantize_model(base), "flash_rel_attention")]
+    gen = torch.Generator(device=dev).manual_seed(seed + 31)
+    counters = _counters()
+    times = {}
+    for arm, model, kernel in arms:
+        impl = "flash" if arm == "flash" else "flash_rel"
+        for rows, frames in MESSAGE_SHAPES:
+            xs = [torch.randn(rows, frames, 160, device=dev, generator=gen)
+                  for _ in range(2)]
+            valid = torch.randint(frames // 2, frames + 1, (rows,),
+                                  device=dev, generator=gen)
+            mask = torch.arange(frames, device=dev)[None, :] < valid[:, None]
+            with torch.inference_mode():
+                want = [model._encode(x, mask, torch.bfloat16, impl)
+                        for x in xs]
+                got, launched = [], []
+                for x in (xs[0], xs[0], xs[1]):  # capture, two replays
+                    before = counters[kernel].launches
+                    got.append(model(x, mask, dtype=torch.bfloat16,
+                                     attention_impl=impl))
+                    launched.append(counters[kernel].launches - before)
+            same = [torch.equal(g, w) for g, w in
+                    zip(got, (want[0], want[0], want[1]))]
+            if not all(same) or launched != [24, 24, 24]:
+                raise AssertionError(
+                    f"[3d graphs] {arm} {rows}x{frames}: replay equal to "
+                    f"eager {same}, launches {launched}")
+        log(f"[3d graphs] {arm}: capture + 2 replays at "
+            f"{len(MESSAGE_SHAPES)} shapes equal eager bit for bit; "
+            f"{kernel} launches 24 per call")
+        if arm == "flash_rel":
+            x = torch.randn(48, 1280, 160, device=dev, generator=gen)
+            mask = torch.ones(48, 1280, dtype=torch.bool, device=dev)
+            for label, fn in (
+                    ("eager", lambda: model._encode(x, mask, torch.bfloat16,
+                                                    impl)),
+                    ("replay", lambda: model(x, mask,
+                                             dtype=torch.bfloat16))):
+                with torch.inference_mode():
+                    host = []
+                    for _ in range(5):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        fn()
+                        host.append(1e3 * (time.perf_counter() - t0))
+                    card_ms = _cuda_ms(fn, 5)
+                times[label] = {"host_ms": float(np.median(host)),
+                                "card_ms": card_ms}
+            log(f"[3d graphs] 48x1280 flash_rel: host ms to return, card "
+                f"ms per call: {json.dumps(times)}")
+    del arms, base, model
+    torch.cuda.empty_cache()
+    return times
 
 
 def _fused_features(buf: np.ndarray, lengths: np.ndarray,
@@ -2491,7 +2568,10 @@ class _IdSpy:
             m.register_forward_hook(self._hook)
         real = engine._fetch_pending
 
-        def fetch(chunks, pending, results):
+        def fetch(chunks, pending, results, done=None):
+            # The engine enqueued these outputs on a stream of its own,
+            # and this reads them before its fetch waits on their events.
+            torch.cuda.synchronize()
             for sub_chunks, out, err in pending:
                 if err is not None:
                     continue
@@ -2507,7 +2587,7 @@ class _IdSpy:
                         ok = mask[3 * j + v].astype(bool)
                         self.rows[f"{c.file_name}|{c.chunk_idx}|{v}"] = (
                             ids[3 * j + v][ok], clear[3 * j + v][ok])
-            return real(chunks, pending, results)
+            return real(chunks, pending, results, done)
 
         engine._fetch_pending = fetch
 
@@ -3244,6 +3324,7 @@ def main() -> int:
     rel = kernel_vs_plain(args.seed)
     flash = flash_vs_plain(args.seed)
     parts = parts_vs_plain(args.seed)
+    graph_vs_eager(args.seed)
     small_reference(args.seed, "auto")
     small_reference(args.seed, "flash")
     message_reference(args.seed, "auto", profile=True)

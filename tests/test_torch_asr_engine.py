@@ -11,6 +11,7 @@ from audio_processor_tpu.models import wav2vec2bert as jw
 from audio_processor_tpu_torch.config import PipelineConfig
 from audio_processor_tpu_torch.models import wav2vec2bert as tw
 from audio_processor_tpu_torch.models.tokenizer import CTCVocab
+from audio_processor_tpu_torch.obs import profiler
 from audio_processor_tpu_torch.pipeline.asr_engine import ASREngine
 from audio_processor_tpu_torch.pipeline.chunker import chunk_batch, split_audio
 from audio_processor_tpu_torch.pipeline.engine import DataProcessor
@@ -285,3 +286,77 @@ def test_unported_configuration_raises(engines):
                                       "attention_impl": "flash"})
     assert ASREngine(flash, device="cpu",
                      model=tiny).attention_impl == "flash"
+
+
+class _StubEvent:
+    """Stands in for a device batch's CUDA event; logs each wait."""
+
+    def __init__(self, log, k):
+        self.log, self.k = log, k
+
+    def synchronize(self):
+        self.log.append(("wait", self.k))
+
+
+def _one_chunk_engine(teng, fused=True):
+    cfg = PipelineConfig.from_dict({**teng.config.to_dict(),
+                                    "chunk_batch_size": 1,
+                                    "fuse_acoustic_features": fused})
+    return ASREngine(cfg, device="cpu", model=teng.model, vocab=teng.vocab)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_pace_keeps_one_batch_queued_behind_the_running_one(engines,
+                                                            monkeypatch,
+                                                            fused):
+    """With events (stubs), dispatch_chunks enqueues device batch k only
+    after it has waited on batch k-2's event, and never waits on batch
+    k-1's; k counts across calls on one engine. Fetches are not run, so
+    every wait logged is the pace's."""
+    _, teng = engines
+    eng = _one_chunk_engine(teng, fused)
+    log = []
+    monkeypatch.setattr(eng, "_done_events", lambda: [_StubEvent(
+        log, sum(1 for e in log if e[0] == "run") - 1)])
+    name = "_run_fused" if fused else "_mono"
+    real = getattr(eng, name)
+
+    def run(*a, **kw):
+        log.append(("run", None))
+        return real(*a, **kw)
+
+    monkeypatch.setattr(eng, name, run)
+    call = _int16_exact_call(9.0)
+    with profiler.recording_spans():
+        seen = {s.id for s in profiler.spans()}
+        for _ in range(2):
+            eng.dispatch_chunks(split_audio(call, 16000, "c.wav", 4.0, 1.0))
+        new = [s for s in profiler.spans() if s.id not in seen]
+    runs = [i for i, e in enumerate(log) if e[0] == "run"]
+    assert len(runs) == 6, log
+    for k, at in enumerate(runs):
+        waited = [e[1] for e in log[:at] if e[0] == "wait"]
+        assert waited == list(range(k - 1)), (k, log)
+    assert sum(1 for s in new if s.name == "asr_engine.pace") == 4
+    if fused:
+        parents = {s.id: s.name for s in new}
+        assert {parents.get(s.parent) for s in new
+                if s.name == "asr_engine.pace"} == {"asr_engine.dispatch"}
+
+
+def test_no_events_no_pace_on_the_cpu(engines):
+    """A CPU engine records no events, so neither its pace nor its fetch
+    ever waits, whatever the number of device batches."""
+    _, teng = engines
+    eng = _one_chunk_engine(teng)
+    assert eng._done_events() is None
+    call = _int16_exact_call(9.0)
+    with profiler.recording_spans():
+        seen = {s.id for s in profiler.spans()}
+        for _ in range(2):
+            rows = eng.transcribe_chunks(split_audio(call, 16000, "c.wav",
+                                                     4.0, 1.0))
+            assert [r["error"] for r in rows] == [""] * 3
+        new = [s.name for s in profiler.spans() if s.id not in seen]
+    assert new.count("asr_engine.dispatch") == 6
+    assert "asr_engine.pace" not in new and len(eng._queued) == 0

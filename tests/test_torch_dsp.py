@@ -81,3 +81,25 @@ def test_resample_np_matches_jax(orig):
     ref = jax_resample_np(x, orig, SR)
     assert got.shape == ref.shape and got.dtype == np.float32
     np.testing.assert_allclose(got, ref, atol=1e-6, rtol=0)
+
+
+def test_constant_tables_are_copied_to_a_device_once():
+    """The frontends' windows, filter banks and DFT bases come from
+    ``stft.device_table``: one tensor per (table, arguments, device) for
+    the life of the process, equal to the numpy table in float32, made
+    outside inference mode (so no later autograd use trips on it)."""
+    from audio_processor_tpu_torch.dsp import mfcc, stft
+
+    cpu = torch.device("cpu")
+    with torch.inference_mode():
+        win = stft.device_table(stft.povey_window, (400,), cpu)
+        cos_m, msin_m = stft.dft_matrices(400, 512, cpu)
+    assert stft.device_table(stft.povey_window, (400,), cpu) is win
+    assert stft.dft_matrices(400, 512, cpu)[0] is cos_m
+    assert not win.is_inference() and win.dtype == torch.float32
+    np.testing.assert_array_equal(
+        win.numpy(), stft.povey_window(400).astype(np.float32))
+    np.testing.assert_array_equal(msin_m.numpy(),
+                                  stft.dft_matrices_np(400, 512)[1])
+    bank = stft.device_table(mfcc.dct_matrix, (13, 128), cpu)
+    np.testing.assert_array_equal(bank.numpy(), mfcc.dct_matrix(13, 128))

@@ -180,3 +180,58 @@ def test_synthetic_init_is_seeded():
     assert torch.equal(a.layers[0].ffn1_layer_norm.weight,
                        torch.ones(KW["hidden_size"]))
     assert float(a.lm_head.weight.detach().std()) == pytest.approx(0.02, rel=0.1)
+
+
+def test_cuda_graph_rule_and_key(shared):
+    """forward never captures a CUDA graph off the card, with grad on, with
+    parallel groups set or with ``remat``: the graph cache stays empty and
+    no ``encoder.graph`` span opens. The graph key follows the parameters'
+    storage: reassigned tensors make another key, in-place updates do
+    not. A copy of the model starts with an empty cache of its own."""
+    import copy
+    import types
+
+    from audio_processor_tpu_torch.obs import profiler
+
+    _, _, _, feats, mask = shared
+    model = tw.build_synthetic(tw.W2VBertConfig(**KW), torch.device("cpu"))
+    x, m = torch.from_numpy(feats), torch.from_numpy(mask)
+    with profiler.recording_spans():
+        seen = {s.id for s in profiler.spans()}
+        for grad, remat in ((False, False), (True, False), (True, True)):
+            with torch.set_grad_enabled(grad):
+                model(x, m, attention_impl="xla", remat=remat)
+        with torch.inference_mode():
+            model(x, m)
+        new = [s for s in profiler.spans() if s.id not in seen]
+    assert not [s for s in new if s.name == "encoder.graph"]
+    assert model._graphs.devices == {} and model._graphs.ptrs is None
+
+    on_card = types.SimpleNamespace(is_cuda=True)
+    assert not model.graphable(on_card)                 # grad on
+    with torch.inference_mode():
+        assert model.graphable(on_card) and not model.graphable(x)
+        assert not model.graphable(on_card, remat=True)
+        for groups in (tw.ParallelGroups(model=object()),
+                       tw.ParallelGroups(seq=object())):
+            model.parallel = groups
+            assert not model.graphable(on_card)
+        model.parallel = tw.ParallelGroups()
+    with torch.no_grad():
+        assert model.graphable(on_card)
+
+    key = model.graph_key(x, m, torch.bfloat16, "flash_rel")
+    assert model.graph_key(x, m, torch.float32, "flash_rel") != key
+    assert model.graph_key(x, m, torch.bfloat16, "flash") != key
+    assert model.graph_key(x[:1], m[:1], torch.bfloat16, "flash_rel") != key
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(1.0)
+    assert model.graph_key(x, m, torch.bfloat16, "flash_rel") == key
+    model.load_state_dict({k: v.clone() for k, v in
+                           model.state_dict().items()}, assign=True)
+    moved = model.graph_key(x, m, torch.bfloat16, "flash_rel")
+    assert moved[:-1] == key[:-1] and moved[-1] != key[-1]
+    twin = copy.deepcopy(model)
+    assert isinstance(twin._graphs, tw.GraphCache)
+    assert twin._graphs is not model._graphs and twin._graphs.ptrs is None
