@@ -62,8 +62,16 @@ def setup_logging(logs_folder: str) -> None:
     root.addHandler(console)
 
 
-def validate_config(cfg) -> None:
+def validate_config(cfg, serve: bool = False) -> None:
+    """The reference's checks, then what the selected ASR model refuses
+    (``models/seamless_s2t.check_pipeline_config``; ``serve``: under
+    ``--serve``)."""
     cfg.validate()
+    from audio_processor_tpu_torch.models.seamless_s2t import (
+        check_pipeline_config,
+    )
+
+    check_pipeline_config(cfg, serve=serve)
 
 
 def check_disk_space(min_free_gb: float) -> bool:
@@ -212,7 +220,7 @@ def main(argv=None) -> int:
     if pdist.process_count() > 1 and args.device == "cuda":
         device = pdist.local_device("cuda")
     try:
-        validate_config(cfg)
+        validate_config(cfg, serve=args.serve)
     except ValueError as e:
         logger.error("Invalid configuration: %s", e)
         return 2

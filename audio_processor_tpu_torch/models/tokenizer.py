@@ -85,7 +85,12 @@ def decode_ids(ids: Iterable[int], vocab: CTCVocab,
 def batch_decode(ids: np.ndarray, vocab: CTCVocab,
                  mask: Optional[np.ndarray] = None,
                  skip_special_tokens: bool = False) -> List[str]:
-    """[B, T] frame ids (+ optional valid-frame mask) -> list of texts."""
+    """[B, T] frame ids (+ optional valid-frame mask) -> list of texts.
+    A vocabulary with a ``batch_decode`` of its own (a piece table,
+    models/pieces.py) decodes by its own rule."""
+    own = getattr(vocab, "batch_decode", None)
+    if own is not None:
+        return own(ids, mask)
     ids = np.asarray(ids)
     out = []
     for b in range(ids.shape[0]):

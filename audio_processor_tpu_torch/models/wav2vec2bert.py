@@ -396,8 +396,13 @@ class GraphCache:
             return dg
 
 
-class Wav2Vec2Bert(nn.Module):
-    """[B, L, 160] features (+ bool [B, L] mask) -> fp32 [B, L, vocab]."""
+class ConformerEncoder(nn.Module):
+    """The conformer stack without a head: feature projection and
+    ``num_hidden_layers`` conformer layers (:meth:`_body`), and the CUDA
+    graph machinery of :meth:`forward`. A subclass's :meth:`_encode` puts
+    its head on the body: the CTC head (:class:`Wav2Vec2Bert`) or the
+    speech-to-text encoder's tail and length adaptor
+    (``models/seamless_s2t.py``)."""
 
     def __init__(self, cfg: W2VBertConfig):
         super().__init__()
@@ -405,7 +410,6 @@ class Wav2Vec2Bert(nn.Module):
         self.feature_projection = FeatureProjection(cfg)
         self.layers = nn.ModuleList(ConformerLayer(cfg)
                                     for _ in range(cfg.num_hidden_layers))
-        self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size)
         self.parallel = ParallelGroups()
         self._graphs = GraphCache()
 
@@ -533,7 +537,15 @@ class Wav2Vec2Bert(nn.Module):
     def _encode(self, input_features: torch.Tensor,
                 attention_mask: torch.Tensor, dtype: torch.dtype, impl: str,
                 remat: bool = False) -> torch.Tensor:
-        """The encoder's eager body (forward's arguments resolved)."""
+        """The eager forward (forward's arguments resolved): the body and
+        the subclass's head."""
+        raise NotImplementedError
+
+    def _body(self, input_features: torch.Tensor,
+              attention_mask: torch.Tensor, dtype: torch.dtype, impl: str,
+              remat: bool = False) -> torch.Tensor:
+        """Feature projection and every conformer layer: [B, L, H] in
+        ``dtype`` (this rank's frames under sequence parallel)."""
         B, L, _ = input_features.shape
         pad_mask = attention_mask.float()
         attn_bias = ((1.0 - pad_mask) * -1e9)[:, None, None, :]
@@ -558,8 +570,25 @@ class Wav2Vec2Bert(nn.Module):
                     layer, x, attn_bias, pad_mask, impl, use_reentrant=False)
             else:
                 x = layer(x, attn_bias, pad_mask, impl)
+        return x
+
+
+class Wav2Vec2Bert(ConformerEncoder):
+    """[B, L, 160] features (+ bool [B, L] mask) -> fp32 [B, L, vocab]."""
+
+    def __init__(self, cfg: W2VBertConfig):
+        super().__init__(cfg)
+        self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size)
+
+    def _encode(self, input_features: torch.Tensor,
+                attention_mask: torch.Tensor, dtype: torch.dtype, impl: str,
+                remat: bool = False) -> torch.Tensor:
+        """The encoder's eager body and its CTC head."""
+        x = self._body(input_features, attention_mask, dtype, impl, remat)
         logits = dense(self.lm_head, x.float())
+        sp = self.parallel.seq
         if sp is not None:
+            L = input_features.shape[1]
             logits = gather_replicated(logits, 1, sp)[:, :L]
         return logits
 

@@ -27,6 +27,15 @@ posteriors decoded by CTC prefix beam search when ``beam_width > 1``),
 and the three views of each chunk under ``fuse_acoustic_features:
 false`` (no acoustic features then, as in the reference).
 
+The speech-to-text model (``asr_model_type: seamless_m4t_v2_s2t``,
+models/seamless_s2t.py) runs in the same fused program: the speech encoder
+and its length adaptor in place of the CTC encoder, then the text decoder's
+greedy loop to each row's cap (``s2t_max_new_tokens``, ``s2t_len_a``,
+``s2t_len_b``) after the prompt ``</s>`` + ``s2t_tgt_lang_id``. Its output
+is token ids and the mask of each row's text tokens; the fetch turns them
+into text through the piece table. It has no mono-rows program, so the
+message path, serving, unfused features and word timestamps refuse it.
+
 Weights: an HF checkpoint directory when ``transcription_model`` points
 at one (models/checkpoint.py: converted once, then restored from its
 ``torch_converted/`` cache), else seeded random weights with the default
@@ -67,11 +76,13 @@ from audio_processor_tpu_torch.dsp.fbank import (
 )
 from audio_processor_tpu_torch.io import native
 from audio_processor_tpu_torch.io.wire import maybe_int16_wire, upload
+from audio_processor_tpu_torch.models import seamless_s2t as s2t
 from audio_processor_tpu_torch.models import wav2vec2bert as w2v
 from audio_processor_tpu_torch.models.ctc_beam import ctc_beam_search
 from audio_processor_tpu_torch.models.checkpoint import (
     load_or_convert_w2v_bert,
 )
+from audio_processor_tpu_torch.models.pieces import PieceVocab
 from audio_processor_tpu_torch.models.tokenizer import (
     CTCVocab, batch_decode, decode_words,
 )
@@ -122,10 +133,13 @@ class _SubBatch:
 
 
 class ASREngine:
-    def __init__(self, config, device, model: Optional[w2v.Wav2Vec2Bert]
-                 = None, vocab: Optional[CTCVocab] = None, mesh=None):
+    def __init__(self, config, device, model: Optional[torch.nn.Module]
+                 = None, vocab=None, mesh=None):
         self.config = config
         self.mesh = mesh
+        # The speech-to-text model (else the CTC model); refuses what it
+        # does not run.
+        self.s2t = s2t.check_pipeline_config(config)
         if mesh is None:
             replica_devices = [torch.device(device)]
         elif mesh.multi_process:
@@ -151,15 +165,32 @@ class ASREngine:
         self.model = model.to(self.device).eval()
         if self.quantization == "int8":
             logger.info("int8 W8A8 inference enabled")
-            self.model = w2v.quantize_model(self.model)
+            self.model = (s2t.quantize_model if self.s2t
+                          else w2v.quantize_model)(self.model)
         self.model_cfg = model.cfg
+        if self.s2t:
+            if self.model.rule != s2t.rule_from_config(config):
+                raise ValueError(
+                    f"the model's decode-length rule {self.model.rule} is "
+                    f"not the config's {s2t.rule_from_config(config)}")
+            self.model.cast_decoder(self.dtype)
+            lang = config.get("s2t_tgt_lang_id", None)
+            self.lang_id = (self.model_cfg.vocab_size - 1 if lang is None
+                            else int(lang))
+            # decoder.loop span attributes per device batch, by its text
+            # mask, until the fetch counts its tokens.
+            self._loop_attrs: Dict[int, dict] = {}
         # One model per 'data' device (the first is self.model), and the
         # fused-program calls each has run.
         self.replicas = [self.model] + [
             copy.deepcopy(self.model).to(d) for d in replica_devices[1:]]
         self.replica_devices = replica_devices
         self.replica_dispatches = [0] * len(self.replicas)
-        self.vocab = vocab or CTCVocab.darija_default()
+        if vocab is None:
+            vocab = (PieceVocab.synthetic(self.model_cfg.vocab_size, 0,
+                                          self.lang_id) if self.s2t
+                     else CTCVocab.darija_default())
+        self.vocab = vocab
         sr = int(config.get("target_sample_rate", 16000))
         self.bucket_samples = tuple(
             int(b * sr) for b in config.get(
@@ -218,6 +249,17 @@ class ASREngine:
     # ------------------------------------------------------------------
     def _load_or_init(self):
         model_path = self.config.get("transcription_model", "")
+        if self.s2t:
+            if model_path and Path(model_path).exists():
+                raise ValueError(
+                    f"asr_model_type {s2t.MODEL_TYPE!r} does not load "
+                    f"checkpoints yet (transcription_model {model_path!r})")
+            logger.warning("%s: randomly initialized weights at the "
+                           "published widths (synthetic mode)",
+                           s2t.MODEL_TYPE)
+            return s2t.build_synthetic(
+                s2t.S2TConfig(), self.device, seed=0,
+                rule=s2t.rule_from_config(self.config)), None
         if model_path and Path(model_path).exists():
             logger.info("Loading checkpoint from %s", model_path)
             cfg, sd, vocab_dict = load_or_convert_w2v_bert(model_path)
@@ -239,12 +281,17 @@ class ASREngine:
     # ------------------------------------------------------------------
     @torch.inference_mode()
     def _fused(self, buf: torch.Tensor, lengths: torch.Tensor,
-               bucket_len: int, replica: int = 0):
+               bucket_len: int, replica: int = 0,
+               caps: Optional[np.ndarray] = None, steps: int = 0):
         """The fused device program on replica ``replica``: buf [N, 2,
         bucket+2*PAD] (agent, client; int16 or f32) and lengths [N] ->
         (ids [3N, L'], mask [3N, L'], acoustic features [N, 2, 38]), all on
         the replica's device. Span ``asr_fused``: the launches of one
-        device batch (``asr_fused.launches_per_batch``)."""
+        device batch (``asr_fused.launches_per_batch``).
+
+        The speech-to-text model decodes ``steps`` tokens, each row to
+        ``</s>`` or its cap (``caps`` [3N] on the host; 0 for a padding
+        row): ids [3N, steps] and the mask of each row's text tokens."""
         with profiler.span("asr_fused", bucket=bucket_len, replica=replica):
             x = buf.float()
             if buf.dtype == torch.int16:
@@ -258,11 +305,19 @@ class ASREngine:
             feats, mask = log_mel_frontend(rows,
                                            lengths.repeat_interleave(3))
             feats, mask = pad_seq(feats, mask)
-            logits = self.replicas[replica](
-                feats, mask, dtype=self.dtype,
-                attention_impl=self.attention_impl)
-            ids = w2v.greedy_ctc_ids(logits, mask,
-                                     self.model_cfg.pad_token_id)
+            if self.s2t:
+                ids, mask, attrs = self.replicas[replica](
+                    feats, mask, upload(caps, buf.device), steps,
+                    self.lang_id, dtype=self.dtype,
+                    attention_impl=self.attention_impl)
+                if attrs is not None:
+                    self._loop_attrs[id(mask)] = attrs
+            else:
+                logits = self.replicas[replica](
+                    feats, mask, dtype=self.dtype,
+                    attention_impl=self.attention_impl)
+                ids = w2v.greedy_ctc_ids(logits, mask,
+                                         self.model_cfg.pad_token_id)
             af = extract_features_batch(x.reshape(2 * N, -1),
                                         lengths.repeat_interleave(2))
         self.dispatches += 1
@@ -270,15 +325,25 @@ class ASREngine:
         return ids, mask, af.reshape(N, 2, -1)
 
     def _run_fused(self, buf: np.ndarray, lengths: np.ndarray,
-                   bucket_len: int):
+                   bucket_len: int, n_real: Optional[int] = None):
         """Enqueue the fused program on one padded device batch, one
         equal slice per replica (the whole batch when there is one):
         a list of the replicas' outputs, concatenated on the host at
-        fetch."""
+        fetch. The first ``n_real`` chunks are real (default: all); the
+        speech-to-text model decodes no token for the others."""
         n = buf.shape[0] // len(self.replicas)
+        kw = [{} for _ in self.replicas]
+        if self.s2t:
+            real = buf.shape[0] if n_real is None else n_real
+            caps = np.repeat(np.asarray(
+                self.model.caps(lengths[:real]) + [0] * (len(lengths) - real),
+                np.int64), 3)
+            steps = int(caps.max())
+            kw = [{"caps": caps[3 * i * n:3 * (i + 1) * n], "steps": steps}
+                  for i in range(len(self.replicas))]
         return [self._fused(upload(buf[i * n:(i + 1) * n], dev),
                             upload(lengths[i * n:(i + 1) * n], dev),
-                            bucket_len, replica=i)
+                            bucket_len, replica=i, **kw[i])
                 for i, dev in enumerate(self.replica_devices)]
 
     @torch.inference_mode()
@@ -289,6 +354,9 @@ class ASREngine:
         ``beam`` (log posteriors [N, L', vocab], mask), on the device.
         One body (dequantize, fbank, pad, encoder) serves both heads,
         so the greedy and beam numerics cannot drift apart."""
+        if self.s2t:
+            raise ValueError(f"asr_model_type {s2t.MODEL_TYPE!r} has no "
+                             "mono-rows program")
         x = rows.float()
         if rows.dtype == torch.int16:   # wire format (half the upload)
             x = x * (1.0 / 32768.0)
@@ -484,7 +552,8 @@ class ASREngine:
                             rows=len(sub), rows_dispatched=buf.shape[0],
                             h2d_bytes=buf.nbytes + lengths.nbytes):
                         self._pace()
-                        out = self._run_fused(buf, lengths, sub.bucket_len)
+                        out = self._run_fused(buf, lengths, sub.bucket_len,
+                                              n_real=len(sub))
                     self._warmed.add((sub.bucket_len, buf.shape[0]))
                     pending.append((sub.chunks, out, None))
                     done.append((sub.bucket_len, self._queue_events()))
@@ -563,6 +632,8 @@ class ASREngine:
                         np.concatenate([p[i].cpu().numpy() for p in parts])
                         for i in range(len(parts[0])))
                     af = af[0][:n] if af else None   # unfused: none
+                    if self.s2t:
+                        self._count_tokens(parts, ids)
                 except Exception as e:
                     logger.exception("ASR fetch failed: %s", e)
                     err = str(e)
@@ -618,6 +689,18 @@ class ASREngine:
             }))
             out_rows.append(row)
         return out_rows
+
+    def _count_tokens(self, parts, ids) -> None:
+        """Fill each fetched device batch's ``decoder.loop`` span with the
+        tokens its rows emitted (``</s>`` included; never the pad id)."""
+        row = 0
+        for p in parts:
+            n = p[1].shape[0]
+            attrs = self._loop_attrs.pop(id(p[1]), None)
+            if attrs is not None:
+                attrs["tokens"] = int(
+                    (ids[row:row + n] != self.model_cfg.pad_token_id).sum())
+            row += n
 
     def _prepare_rows(self, batch) -> tuple:
         """Unfused path: [3N, L] float32 view rows (mixed, agent, client

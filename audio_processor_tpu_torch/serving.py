@@ -42,6 +42,7 @@ from urllib.parse import parse_qs, urlsplit
 
 from audio_processor_tpu_torch.io.decode import load_audio_bytes
 from audio_processor_tpu_torch.io.wav import WavError
+from audio_processor_tpu_torch.models import seamless_s2t as s2t
 from audio_processor_tpu_torch.pipeline.asr_engine import ASREngine
 from audio_processor_tpu_torch.pipeline.chunker import prepare_and_split
 
@@ -85,8 +86,12 @@ class InferenceService:
     def __init__(self, config, asr_engine=None, sentiment_analyzer=None,
                  device="cuda"):
         self.config = config
+        s2t.check_pipeline_config(config, serve=True)
         self.engine = (asr_engine if asr_engine is not None
                        else ASREngine(config, device))
+        if getattr(self.engine, "s2t", False):
+            raise ValueError(f"asr_model_type {s2t.MODEL_TYPE!r} does not "
+                             "serve (no mono-rows program)")
         self.sentiment = sentiment_analyzer
         self.batch_window_ms = float(config.get("serve_batch_window_ms",
                                                 20.0))

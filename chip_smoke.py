@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--only s2t]
 
 Phases, each of which fails the run (non-zero exit) on any error:
 
@@ -185,7 +185,14 @@ Phases, each of which fails the run (non-zero exit) on any error:
    depth <= 20, through ``scaler_transform``, ``svc_predict_proba`` /
    ``svc_predict`` and ``forest_predict_proba`` / ``forest_predict`` at
    B = 48: probabilities within 1e-5, labels equal away from ties; prints
-   ms per call on the card beside the numpy heads'.
+   ms per call on the card beside the numpy heads';
+13. SeamlessM4T v2 speech-to-text (``models/seamless_s2t.py``) at its
+   published widths on one 48-row batch of 25 s chunks: the speech
+   encoder's graph equals its eager body bit for bit with 24 flash_rel
+   launches per call, and 103 graph-replayed decode steps equal the loop
+   run eagerly step by step (tokens, and logits at three steps, bit for
+   bit); host and card ms per step, eager and replayed
+   (``--only s2t`` runs phases 1, 2 and 13 alone).
 
 Kernel launch counts are set to 0 just before each of the paths 5, 5b,
 6, 7, 7c, 8, 10, 11a (in each process) and 11e, and after phase 9's
@@ -3307,9 +3314,109 @@ def rank_worker(phase: str, rank: int, world: int, spec: dict) -> int:
     return 0
 
 
+def s2t_phase(seed: int) -> dict:
+    """Phase 13: SeamlessM4T v2 speech-to-text at its published widths
+    (random weights from the seed, bf16, the decoder's weights cast once)
+    on one 48-row device batch of 25 s chunks (1,249 valid frames of 1280,
+    157 adaptor frames, a cap of 103 tokens per row): the speech encoder's
+    graph (capture, two replays) equals its eager body bit for bit with 24
+    flash_rel launches per call and none from the adaptor; the decode loop
+    run step by step eagerly, then by ``generate`` twice (capture, replay),
+    gives the same tokens and the same logits at three steps bit for bit;
+    prints host ms to return and card ms per step, eager and replayed, the
+    speech encoder's card ms and the peak device memory."""
+    from audio_processor_tpu_torch.models import seamless_s2t as s2t
+
+    dev = torch.device(DEVICE)
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = s2t.build_synthetic(s2t.S2TConfig(), dev, seed=seed) \
+        .cast_decoder(torch.bfloat16)
+    enc_m, dec = model.speech_encoder, model.text_decoder
+    lang = model.cfg.vocab_size - 1
+    gen = torch.Generator(device=dev).manual_seed(seed + 41)
+    x = torch.randn(48, 1280, 160, device=dev, generator=gen)
+    mask = (torch.arange(1280, device=dev) < 1249)[None].expand(48, -1) \
+        .contiguous()
+    x = x * mask[..., None]
+    rel = _counters()["flash_rel_attention"]
+    out = {}
+    with torch.inference_mode():
+        want = enc_m._encode(x, mask, torch.bfloat16, "flash_rel")
+        launched = []
+        for _ in range(3):
+            before = rel.launches
+            got = enc_m(x, mask, dtype=torch.bfloat16,
+                        attention_impl="flash_rel")
+            launched.append(rel.launches - before)
+            if not torch.equal(got, want):
+                raise AssertionError("[13 s2t] speech encoder replay != "
+                                     "eager")
+        if launched != [24, 24, 24]:
+            raise AssertionError(f"[13 s2t] flash_rel launches {launched}")
+        emask = enc_m.output_mask(mask)
+        caps_h = model.caps([400000] * 48)
+        steps = max(caps_h)
+        assert int(emask[0].sum()) == 157 and steps == 103, (emask.sum(1),
+                                                              caps_h)
+        caps = torch.tensor(caps_h, device=dev)
+        taps = {0, steps // 2, steps - 1}
+        st = dec._state(48, want.shape[1], torch.bfloat16, dev)
+
+        def eager():
+            dec.reset(st, caps)
+            kept = {}
+            for pos in range(steps + 1):
+                dec._step(st, dec.window(pos), lang)
+                if pos - 1 in taps:
+                    kept[pos - 1] = st.logits.clone()
+            return st.ids[:, :steps].clone(), kept
+
+        dec.cross_kv(st, want, emask)
+        ids_e, logits_e = eager()
+        dec.tap_steps = lambda n: taps
+        for call in ("capture", "replay"):
+            ids, text, _ = dec.generate(want, emask, caps, steps, lang)
+            diff = {g: float((dec.tapped[g].float()
+                              - logits_e[g].float()).abs().max())
+                    for g in taps}
+            if not torch.equal(ids, ids_e) or any(diff.values()):
+                raise AssertionError(
+                    f"[13 s2t] decode {call} != eager: ids equal "
+                    f"{torch.equal(ids, ids_e)}, logit max diff {diff}")
+            assert int(text.sum()) == 48 * steps, "a row stopped early"
+        dec.tap_steps = None
+        for label, fn in (("eager", eager),
+                          ("replay", lambda: dec.decode(st, caps, steps,
+                                                        lang))):
+            host = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                host.append(1e3 * (time.perf_counter() - t0))
+            out[label] = {"host_ms_per_step": float(np.median(host))
+                          / (steps + 1),
+                          "card_ms_per_step": _cuda_ms(fn, 3) / (steps + 1)}
+        out["speech_encoder_card_ms"] = _cuda_ms(
+            lambda: enc_m(x, mask, dtype=torch.bfloat16,
+                          attention_impl="flash_rel"), 3)
+        out["cross_kv_card_ms"] = _cuda_ms(
+            lambda: dec.cross_kv(st, want, emask), 3)
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    log(f"[13 s2t] 48 rows x 1280 frames, 103 steps: replay = eager bit "
+        f"for bit (encoder, tokens, logits at steps {sorted(taps)}); "
+        f"{json.dumps(out)}")
+    del model, enc_m, dec, st
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only", choices=("s2t",),
+                    help="run the card check, the build and this phase "
+                         "alone")
     ap.add_argument("--rank-worker", help=argparse.SUPPRESS)
     ap.add_argument("--rank", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--world", type=int, help=argparse.SUPPRESS)
@@ -3321,6 +3428,12 @@ def main() -> int:
     logging.basicConfig(level=logging.WARNING, stream=sys.stderr)
     name = card()
     build()
+    if args.only == "s2t":
+        s2t_phase(args.seed)
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count()}}))
+        return 0
     rel = kernel_vs_plain(args.seed)
     flash = flash_vs_plain(args.seed)
     parts = parts_vs_plain(args.seed)
@@ -3362,6 +3475,7 @@ def main() -> int:
         entered = entry_points()
         device_resample(args.seed)
     acoustic_heads(args.seed)
+    s2t_phase(args.seed)
     assert int8["launches"] > 0
     assert "jax" not in sys.modules
     assert not any(m.split(".")[0] == "audio_processor_tpu"
