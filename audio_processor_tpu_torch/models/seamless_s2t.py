@@ -28,8 +28,12 @@ self-attention K/V cache is static and preallocated, the cross-attention
 K/V is computed once per device batch (span ``decoder.cross_kv``), and on
 a CUDA device each step of the loop (span ``decoder.loop``) replays a CUDA
 graph per (rows, adaptor frames, attention window) key (span
-``decoder.graph``, ``mode`` capture / replay / eager). A step attends over
-a window of the cache that grows in steps of :data:`WINDOW` positions.
+``decoder.graph``, ``mode`` capture / replay / eager, ``attn_launches``).
+Each layer's self- and cross-attention is one launch of
+``models/decode_attention.py``'s kernel, which writes the step's key and
+value into the cache and attends over positions 0 .. pos; its plain
+version (the CPU's) reads a window of the cache that grows in steps of
+:data:`WINDOW` positions.
 
 Departures from HF, each so that a row's result is its result alone:
 padded encoder frames are zeroed after the adaptor's LayerNorms, before
@@ -46,12 +50,15 @@ casts per call like ``Wav2Vec2Bert``. Logits come out in the compute dtype.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import itertools
 import logging
 import math
 from fractions import Fraction
-from typing import Any, Callable, Collection, Dict, Optional, Sequence, Tuple
+from typing import (
+    Any, Callable, Collection, Dict, NamedTuple, Optional, Sequence, Tuple,
+)
 
 import torch
 import torch.nn as nn
@@ -59,6 +66,10 @@ import torch.nn.functional as F
 
 from audio_processor_tpu_torch.dsp.fbank import (
     FRAME_LENGTH, HOP_LENGTH, STRIDE,
+)
+from audio_processor_tpu_torch.models import _cuda_call
+from audio_processor_tpu_torch.models.decode_attention import (
+    decode_attention,
 )
 from audio_processor_tpu_torch.models.quant import (
     QuantLinear, is_quantized, quantize_linears,
@@ -227,19 +238,6 @@ def _heads(lin: nn.Module, x: torch.Tensor, nh: int) -> torch.Tensor:
     return _dense(lin, x).view(B, L, nh, -1).transpose(1, 2)
 
 
-def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            bias: torch.Tensor) -> torch.Tensor:
-    """Softmax attention of scaled q [B, nh, Lq, d] over k, v [B, nh, Lk,
-    d] with an additive fp32 bias: scores in the compute dtype, softmax in
-    fp32, probabilities back in the compute dtype (HF's order); returns
-    [B, Lq, nh * d]."""
-    s = (q @ k.transpose(-1, -2)).float() + bias
-    p = torch.softmax(s, dim=-1).to(q.dtype)
-    out = p @ v
-    B, nh, Lq, d = out.shape
-    return out.transpose(1, 2).reshape(B, Lq, nh * d)
-
-
 class ReluFFN(nn.Module):
     def __init__(self, h: int, f: int):
         super().__init__()
@@ -383,25 +381,35 @@ class DecoderLayer(nn.Module):
         self.ffn = DecoderFFN(h, cfg.decoder_ffn_dim)
         self.ffn_layer_norm = nn.LayerNorm(h)
 
-    def step(self, x, k_cache, v_cache, pos, window, self_bias, ck, cv,
-             enc_bias):
+    def step(self, x, k_cache, v_cache, pos, window, ck, cv, enc_bias):
         """One position of each row: x [B, 1, H]; its key and value go into
-        the caches [B, nh, C, d] at ``pos`` (a [1] device tensor); it
-        attends over the first ``window`` cache positions."""
+        the caches [B, nh, C, d] at ``pos`` (a [1] device tensor), and it
+        attends over cache positions 0 .. pos (the plain version reads the
+        first ``window``) and over the cross K/V under ``enc_bias`` [B, F],
+        each in one :func:`decode_attention`."""
+        B = x.shape[0]
         sa = self.self_attn
         h = layer_norm(self.self_attn_layer_norm, x)
-        q = _heads(sa.q_proj, h, self.nh) * self.scaling
-        k_cache.index_copy_(2, pos, _heads(sa.k_proj, h, self.nh))
-        v_cache.index_copy_(2, pos, _heads(sa.v_proj, h, self.nh))
-        o = _attend(q, k_cache[:, :, :window], v_cache[:, :, :window],
-                    self_bias)
-        x = x + _dense(sa.out_proj, o)
+        o = decode_attention(
+            _dense(sa.q_proj, h).view(B, -1), k_cache, v_cache, self.scaling,
+            pos=pos, k_new=_dense(sa.k_proj, h).view(B, -1),
+            v_new=_dense(sa.v_proj, h).view(B, -1), window=window)
+        x = x + _dense(sa.out_proj, o.view(B, 1, -1))
         ca = self.cross_attention
         h = layer_norm(self.cross_attention_layer_norm, x)
-        q = _heads(ca.q_proj, h, self.nh) * self.scaling
-        x = x + _dense(ca.out_proj, _attend(q, ck, cv, enc_bias))
+        o = decode_attention(_dense(ca.q_proj, h).view(B, -1), ck, cv,
+                             self.scaling, bias=enc_bias)
+        x = x + _dense(ca.out_proj, o.view(B, 1, -1))
         h = layer_norm(self.ffn_layer_norm, x)
         return x + _dense(self.ffn.fc2, F.relu(_dense(self.ffn.fc1, h)))
+
+
+class _StepGraph(NamedTuple):
+    """One window's captured step: its graph and the kernel-wrapper
+    launches (wrapper -> count) that each replay makes."""
+
+    graph: Any
+    launches: Dict[Any, int]
 
 
 class _DecodeState:
@@ -423,7 +431,7 @@ class _DecodeState:
             self.v = torch.zeros_like(self.k)
             self.ck = torch.zeros(nl, rows, nh, frames, d, dtype=dtype, **z)
             self.cv = torch.zeros_like(self.ck)
-            self.enc_bias = torch.zeros(rows, 1, 1, frames, **z)
+            self.enc_bias = torch.zeros(rows, frames, **z)
             self.pos = torch.zeros(1, dtype=torch.long, **z)
             self.tok = torch.zeros(rows, dtype=torch.long, **z)
             self.cap = torch.zeros(rows, dtype=torch.long, **z)
@@ -432,8 +440,7 @@ class _DecodeState:
             self.ids = torch.zeros(rows, n, dtype=torch.long, **z)
             self.text = torch.zeros(rows, n, dtype=torch.bool, **z)
             self.logits = torch.zeros(rows, cfg.vocab_size, dtype=dtype, **z)
-            self.arange = torch.arange(C, **z)
-        self.graphs: Dict[int, Optional[torch.cuda.CUDAGraph]] = {}
+        self.graphs: Dict[tuple, Optional[_StepGraph]] = {}
 
 
 class TextDecoder(nn.Module):
@@ -499,8 +506,7 @@ class TextDecoder(nn.Module):
                 ca = layer.cross_attention
                 st.ck[i].copy_(_heads(ca.k_proj, enc, layer.nh))
                 st.cv[i].copy_(_heads(ca.v_proj, enc, layer.nh))
-            st.enc_bias.copy_(torch.where(enc_mask, 0.0, NEG)
-                              [:, None, None, :])
+            st.enc_bias.copy_(torch.where(enc_mask, 0.0, NEG))
 
     def _step(self, st: _DecodeState, window: int, lang_id: int) -> None:
         """One position of every row, all on the device: embed the input
@@ -514,10 +520,9 @@ class TextDecoder(nn.Module):
         x = emb * self.embed_scale + self.positions(pos.device) \
             .index_select(0, pos + cfg.pad_token_id + 1)
         x = x.to(dtype)[:, None]
-        self_bias = torch.where(st.arange[:window] <= pos, 0.0, NEG)
         for i, layer in enumerate(self.layers):
-            x = layer.step(x, st.k[i], st.v[i], pos, window, self_bias,
-                           st.ck[i], st.cv[i], st.enc_bias)
+            x = layer.step(x, st.k[i], st.v[i], pos, window, st.ck[i],
+                           st.cv[i], st.enc_bias)
         h = layer_norm(self.layer_norm, x)[:, 0]
         st.logits.copy_(F.linear(h, self.embed_tokens.weight.to(dtype)))
         nxt = greedy(st.logits, cfg.pad_token_id)
@@ -595,46 +600,61 @@ class TextDecoder(nn.Module):
         B, La = st.ck.shape[1], st.ck.shape[3]
         with profiler.span("decoder.graph", rows=B, frames=La, window=window,
                            steps=n) as sp:
-            mode = self._replay(st, window, pos, n, lang_id, taps)
+            mode, launched = self._replay(st, window, pos, n, lang_id, taps)
             if sp is not None:
                 sp.attrs["mode"] = mode
+                sp.attrs["attn_launches"] = launched[decode_attention]
 
-    def _replay(self, st, window, pos, n, lang_id, taps) -> str:
+    def _replay(self, st, window, pos, n, lang_id, taps):
+        """Returns the mode and the kernel-wrapper launches (wrapper ->
+        count) of these steps, each also added to its wrapper's count: an
+        eager step's own, a replay's its capture's."""
         dg = self._graphs.on(st.pos.device, self._state_ptrs)
         key = (window, lang_id)
-        graph = st.graphs.get(key, False)
+        entry = st.graphs.get(key, False)
         mode = "replay"
+        launched = collections.Counter()
         p = pos
-        if graph is False:
-            self._step(st, window, lang_id)      # fills the lazy state
+        if entry is False:
+            # an eager step first fills the lazy state a capture cannot make
+            launched.update(self._eager_step(st, window, lang_id))
             self._tap(st, p, taps)
             p += 1
             with dg.lock:
-                graph = st.graphs[key] = self._capture(dg, st, window,
+                entry = st.graphs[key] = self._capture(dg, st, window,
                                                        lang_id)
-            mode = "capture" if graph is not None else "eager"
+            mode = "capture" if entry is not None else "eager"
         for p in range(p, pos + n):
-            if graph is None:
-                self._step(st, window, lang_id)
+            if entry is None:
+                launched.update(self._eager_step(st, window, lang_id))
             else:
                 with dg.lock:
                     cur = torch.cuda.current_stream(st.pos.device)
                     if dg.last is not None and dg.last[0] != cur:
                         cur.wait_event(dg.last[1])
-                    graph.replay()
+                    entry.graph.replay()
                     done = torch.cuda.Event()
                     done.record(cur)
                     dg.last = (cur, done)
+                launched.update(entry.launches)
             self._tap(st, p, taps)
-        return mode
+        for wrapper, count in launched.items():
+            wrapper.launches += count
+        return mode, launched
 
-    def _capture(self, dg, st, window, lang_id):
+    def _eager_step(self, st, window, lang_id) -> Dict:
+        with _cuda_call.tally_launches() as launched:
+            self._step(st, window, lang_id)
+        return launched
+
+    def _capture(self, dg, st, window, lang_id) -> Optional[_StepGraph]:
         dev = st.pos.device
         try:
             cur = torch.cuda.current_stream(dev)
             dg.stream.wait_stream(cur)
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.device(dev), torch.cuda.stream(dg.stream):
+            with torch.cuda.device(dev), torch.cuda.stream(dg.stream), \
+                    _cuda_call.tally_launches() as launches:
                 graph.capture_begin(pool=dg.pool,
                                     capture_error_mode="thread_local")
                 try:
@@ -647,7 +667,7 @@ class TextDecoder(nn.Module):
                            "window %d) failed; it runs eagerly",
                            st.tok.shape[0], window, exc_info=True)
             return None
-        return graph
+        return _StepGraph(graph, launches)
 
 
 def greedy(logits: torch.Tensor, pad_id: int) -> torch.Tensor:

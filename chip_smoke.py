@@ -191,13 +191,22 @@ Phases, each of which fails the run (non-zero exit) on any error:
    encoder's graph equals its eager body bit for bit with 24 flash_rel
    launches per call, and 103 graph-replayed decode steps equal the loop
    run eagerly step by step (tokens, and logits at three steps, bit for
-   bit); host and card ms per step, eager and replayed
-   (``--only s2t`` runs phases 1, 2 and 13 alone).
+   bit); the decode-attention kernel (``csrc/decode_attention.cu``)
+   against its plain version at 48 rows x 16 heads (self at positions
+   0/31/32/102, cross over 161 frames, 157 valid and ragged rows, one with
+   none; bf16 and fp32), its us per launch beside its byte bound, the
+   plain version's and the library's (``scaled_dot_product_attention``),
+   48 launches tallied per step graph and in each ``decoder.graph`` span,
+   the wrapper's count over one graph-replayed ``generate`` (48 per step,
+   equal to the spans' sum), the kernels one replayed step runs (a
+   ``torch.profiler`` window around one replay); host and card ms per
+   step, eager and replayed (``--only s2t`` runs phases 1, 2 and 13
+   alone).
 
 Kernel launch counts are set to 0 just before each of the paths 5, 5b,
-6, 7, 7c, 8, 10, 11a (in each process) and 11e, and after phase 9's
-warmup, and read just after; 11b counts each replica's launches. The
-second-to-last line is the kernels' JSON record (per kernel: launches,
+6, 7, 7c, 8, 10, 11a (in each process) and 11e, before phase 13's
+traced ``generate``, and after phase 9's warmup, and read just after;
+11b counts each replica's launches. The second-to-last line is the kernels' JSON record (per kernel: launches,
 error, ms, plain ms, the bound computed from the timed inputs and what
 sets it, and the library call's ms or null); the last line is ``{"ok": true, "device": {...}}``. Imports
 nothing of JAX and nothing of the JAX package ``audio_processor_tpu``.
@@ -225,7 +234,8 @@ import torch
 import torch.nn.functional as F
 
 REPO = Path(__file__).resolve().parent
-SOURCES = ("flash_rel_attention", "flash_attention", "flash_rel_parts")
+SOURCES = ("flash_rel_attention", "flash_attention", "flash_rel_parts",
+           "decode_attention")
 # Kernel vs plain: fp32 holds the JAX tests' tolerance (only summation
 # order differs); bf16 outputs may differ by one bf16 rounding (2^-8 to
 # 2^-7 relative) since both sides compute in fp32 and round at the end.
@@ -847,6 +857,9 @@ def small_reference(seed: int, impl: str, quantization: str = "none"
 def _counters() -> dict:
     """Kernel name -> the wrapper whose ``launches`` counts its launches."""
     from audio_processor_tpu_torch.models import flash_rel_parts as frp
+    from audio_processor_tpu_torch.models.decode_attention import (
+        decode_attention,
+    )
     from audio_processor_tpu_torch.models.flash_attention import (
         flash_attention,
     )
@@ -856,7 +869,8 @@ def _counters() -> dict:
 
     return {"flash_rel_attention": flash_rel_attention,
             "flash_attention": flash_attention, "kb640": frp.kb640,
-            "bare": frp.bare, "variant": frp.variant}
+            "bare": frp.bare, "variant": frp.variant,
+            "decode_attention": decode_attention}
 
 
 def _reset_launches() -> None:
@@ -970,7 +984,8 @@ def ablation_path(seed: int) -> dict:
     counts = _launches()
     per = tool.REPS * (tool.ROUNDS + 1)      # a warm-up loop, then ROUNDS
     expect = {"flash_rel_attention": per, "flash_attention": per,
-              "kb640": per, "bare": 2 * per, "variant": 6 * per}
+              "kb640": per, "bare": 2 * per, "variant": 6 * per,
+              "decode_attention": 0}
     log(f"[ablation] launches {counts} (expected {expect})")
     assert counts == expect, counts
     return {"launches": counts, "ms": ms}
@@ -3314,6 +3329,178 @@ def rank_worker(phase: str, rank: int, world: int, spec: dict) -> int:
     return 0
 
 
+def _graph_ms(fn, reps: int) -> float:
+    """Card ms of ``fn``'s launches, captured once as a CUDA graph and
+    replayed, so that the host's launch costs stay out of the time (the
+    decode loop runs them as a graph too); kernel-wrapper launches of the
+    capture are not counted."""
+    from audio_processor_tpu_torch.models import _cuda_call
+
+    fn()
+    graph = torch.cuda.CUDAGraph()
+    with _cuda_call.tally_launches(), torch.cuda.graph(graph):
+        fn()
+    return _cuda_ms(graph.replay, reps)
+
+
+def decode_attention_check(st, seed: int) -> dict:
+    """Phase 13's check of the decode-attention kernel against its plain
+    version at the decoder's shapes (48 rows x 16 heads x 64, the state's
+    288-position caches and 161 adaptor frames): self at positions 0, 31,
+    32 and 102 (outputs, and the caches after the write equal), cross
+    with 157 valid frames and ragged rows, one with none; bf16 and fp32.
+    Then us per launch over the 24 layers' buffers of ``st`` (cold in L2,
+    as in the loop: 24 x 31.7 MB of cross K/V), beside the byte bound, the
+    plain version's us and the library's (``scaled_dot_product_attention``
+    on the same buffers, after the two ``index_copy_`` cache writes in
+    self mode): cross, and self at positions 52 and 102."""
+    from audio_processor_tpu_torch.models import decode_attention as da
+
+    dev = st.pos.device
+    R, nh, C, d = st.k.shape[1:]
+    frames = st.ck.shape[3]
+    scale = d ** -0.5
+    gen = torch.Generator(device=dev).manual_seed(seed + 43)
+    tol = {torch.bfloat16: dict(atol=1e-3, rtol=1e-2),
+           torch.float32: dict(atol=1e-5, rtol=1e-5)}
+    valid = torch.full((R,), frames - 4, device=dev)
+    valid[1:8] = torch.tensor([150, 131, 94, 76, 40, 1, 0], device=dev)
+    bias = torch.where(
+        torch.arange(frames, device=dev)[None] < valid[:, None], 0.0,
+        torch.finfo(torch.float32).min)
+    err = {}
+
+    def rand(*shape, dtype, s=1.0):
+        return (s * torch.randn(*shape, device=dev, generator=gen)) \
+            .to(dtype)
+
+    for dtype in (torch.bfloat16, torch.float32):
+        name = "bf16" if dtype == torch.bfloat16 else "fp32"
+        k, v = rand(R, nh, C, d, dtype=dtype, s=2.0), rand(R, nh, C, d,
+                                                           dtype=dtype)
+        for p in (0, 31, 32, 102):
+            q, kn = (rand(R, nh * d, dtype=dtype, s=2.0) for _ in range(2))
+            vn = rand(R, nh * d, dtype=dtype)
+            pos = torch.tensor([p], device=dev)
+            kp, vp = k.clone(), v.clone()
+            got = da.decode_attention(q, k, v, scale, pos=pos, k_new=kn,
+                                      v_new=vn)
+            want = da.decode_attention_plain(q, kp, vp, scale, pos=pos,
+                                             k_new=kn, v_new=vn)
+            torch.testing.assert_close(got.float(), want.float(),
+                                       **tol[dtype])
+            assert torch.equal(k, kp) and torch.equal(v, vp), p
+            err[f"{name}.self{p}"] = float((got.float() - want.float())
+                                           .abs().max())
+        q = rand(R, nh * d, dtype=dtype, s=2.0)
+        ck, cv = rand(R, nh, frames, d, dtype=dtype, s=2.0), \
+            rand(R, nh, frames, d, dtype=dtype)
+        got = da.decode_attention(q, ck, cv, scale, bias=bias)
+        want = da.decode_attention_plain(q, ck, cv, scale, bias=bias)
+        torch.testing.assert_close(got.float(), want.float(), **tol[dtype])
+        torch.testing.assert_close(          # the row with no valid frame
+            got[7].float(), cv[7].float().mean(dim=1).reshape(-1),
+            atol=1e-2 if dtype == torch.bfloat16 else 1e-5, rtol=0)
+        err[f"{name}.cross"] = float((got.float() - want.float())
+                                     .abs().max())
+        del k, v, ck, cv
+    log(f"[13 s2t] decode attention kernel = plain at {R} x {nh} x {d}: "
+        f"max abs err {err}")
+
+    layers = st.k.shape[0]
+    dtype = st.k.dtype
+    e = torch.finfo(dtype).bits // 8
+    q = rand(R, nh * d, dtype=dtype)
+    kn, vn = rand(R, nh * d, dtype=dtype), rand(R, nh * d, dtype=dtype)
+    rows = R * nh * d * e               # one [R, H*d] tensor's bytes
+    timed = {}
+
+    def heads(t):                       # [R, H*d] -> [R, H, 1, d], a view
+        return t.view(R, 1, nh, d).transpose(1, 2)
+
+    keep = (st.enc_bias == 0)[:, None, None, :]
+    cases = {"cross": (dict(bias=st.enc_bias), lambda i: (st.ck[i],
+                                                           st.cv[i]),
+                       2 * rows + 2 * R * nh * frames * d * e
+                       + R * frames * 4,
+                       lambda i: F.scaled_dot_product_attention(
+                           heads(q), st.ck[i], st.cv[i], attn_mask=keep,
+                           scale=scale))}
+
+    def library_self(i, p, pos):
+        st.k[i].index_copy_(2, pos, heads(kn))
+        st.v[i].index_copy_(2, pos, heads(vn))
+        return F.scaled_dot_product_attention(
+            heads(q), st.k[i][:, :, :p + 1], st.v[i][:, :, :p + 1],
+            scale=scale)
+
+    for p in (52, 102):
+        pos = torch.tensor([p], device=dev)
+        cases[f"self{p}"] = (
+            dict(pos=pos, k_new=kn, v_new=vn),
+            lambda i: (st.k[i], st.v[i]),
+            # q, k_new, v_new read, out and the cache row written, the
+            # cache's first p positions read
+            6 * rows + 2 * R * nh * p * d * e,
+            lambda i, p=p, pos=pos: library_self(i, p, pos))
+    for name, (kw, kv, nbytes, lib) in cases.items():
+        def kernel():
+            for i in range(layers):
+                da.decode_attention(q, *kv(i), scale, **kw)
+
+        def plain():
+            for i in range(layers):
+                da.decode_attention_plain(q, *kv(i), scale, **kw)
+
+        def library():
+            for i in range(layers):
+                lib(i)
+
+        us = 1e3 * _graph_ms(kernel, 20) / layers
+        plain_us = 1e3 * _graph_ms(plain, 5) / layers
+        library_us = 1e3 * _graph_ms(library, 20) / layers
+        timed[name] = {"us": us, "plain_us": plain_us,
+                       "library_us": library_us,
+                       "bound_us": 1e6 * nbytes / 3.35e12,
+                       "bytes": nbytes}
+    log(f"[13 s2t] decode attention us per launch (bound: bytes / 3.35 "
+        f"TB/s): {json.dumps(timed)}")
+    return {"max_abs_err": err, "timed": timed}
+
+
+def step_kernels(graph) -> dict:
+    """The device work one replay of a decode step's graph runs: a
+    ``torch.profiler`` window around one replay, its Chrome trace's
+    kernel, copy and set events counted, and the kernel time summed."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        graph.replay()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+    kinds = {}
+    kernel_us = 0.0
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy",
+                                                   "gpu_memset"):
+            kinds[e["cat"]] = kinds.get(e["cat"], 0) + 1
+            if e["cat"] == "kernel":
+                kernel_us += float(e.get("dur", 0.0))
+    attn = [float(e.get("dur", 0.0)) for e in events if e.get("ph") == "X"
+            and e.get("cat") == "kernel" and "decode_attention" in
+            e.get("name", "")]
+    assert kinds.get("kernel", 0) > 0, kinds
+    out = {"events": kinds, "kernel_us": kernel_us,
+           "decode_attention_kernels": len(attn),
+           "decode_attention_us": sum(attn)}
+    log(f"[13 s2t] one replayed step (profiler window): {out}")
+    return out
+
+
 def s2t_phase(seed: int) -> dict:
     """Phase 13: SeamlessM4T v2 speech-to-text at its published widths
     (random weights from the seed, bf16, the decoder's weights cast once)
@@ -3326,6 +3513,10 @@ def s2t_phase(seed: int) -> dict:
     prints host ms to return and card ms per step, eager and replayed, the
     speech encoder's card ms and the peak device memory."""
     from audio_processor_tpu_torch.models import seamless_s2t as s2t
+    from audio_processor_tpu_torch.models.decode_attention import (
+        decode_attention as da_fn,
+    )
+    from audio_processor_tpu_torch.obs import profiler
 
     dev = torch.device(DEVICE)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -3360,7 +3551,7 @@ def s2t_phase(seed: int) -> dict:
                                                               caps_h)
         caps = torch.tensor(caps_h, device=dev)
         taps = {0, steps // 2, steps - 1}
-        st = dec._state(48, want.shape[1], torch.bfloat16, dev)
+        st = dec._state(48, want.shape[1], torch.bfloat16, want.device)
 
         def eager():
             dec.reset(st, caps)
@@ -3385,6 +3576,26 @@ def s2t_phase(seed: int) -> dict:
                     f"{torch.equal(ids, ids_e)}, logit max diff {diff}")
             assert int(text.sum()) == 48 * steps, "a row stopped early"
         dec.tap_steps = None
+        out["decode_attention"] = decode_attention_check(st, seed)
+        da_fn.launches = 0              # the main path's run alone, below
+        with profiler.recording_spans():
+            seen = {sp.id for sp in profiler.spans()}
+            dec.generate(want, emask, caps, steps, lang)
+            spans = [sp for sp in profiler.spans() if sp.id not in seen
+                     and sp.name == "decoder.graph"]
+        launches = da_fn.launches
+        per_step = 2 * model.cfg.decoder_layers
+        tallied = [e.launches for e in st.graphs.values()]
+        assert tallied and all(t == {da_fn: per_step} for t in tallied), \
+            tallied
+        assert sum(sp.attrs["steps"] for sp in spans) == steps + 1 and all(
+            sp.attrs["attn_launches"] == per_step * sp.attrs["steps"]
+            for sp in spans), [sp.attrs for sp in spans]
+        assert launches == per_step * (steps + 1) == sum(
+            sp.attrs["attn_launches"] for sp in spans), launches
+        out["decode_attention"]["launches"] = launches
+        out["step_kernels"] = step_kernels(st.graphs[(dec.window(steps),
+                                                      lang)].graph)
         for label, fn in (("eager", eager),
                           ("replay", lambda: dec.decode(st, caps, steps,
                                                         lang))):
@@ -3405,7 +3616,8 @@ def s2t_phase(seed: int) -> dict:
     out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     log(f"[13 s2t] 48 rows x 1280 frames, 103 steps: replay = eager bit "
         f"for bit (encoder, tokens, logits at steps {sorted(taps)}); "
-        f"{json.dumps(out)}")
+        f"{per_step} decode-attention launches per step graph and per "
+        f"step of every decoder.graph span; {json.dumps(out)}")
     del model, enc_m, dec, st
     torch.cuda.empty_cache()
     return out
@@ -3475,7 +3687,7 @@ def main() -> int:
         entered = entry_points()
         device_resample(args.seed)
     acoustic_heads(args.seed)
-    s2t_phase(args.seed)
+    s2t = s2t_phase(args.seed)["decode_attention"]
     assert int8["launches"] > 0
     assert "jax" not in sys.modules
     assert not any(m.split(".")[0] == "audio_processor_tpu"
@@ -3531,6 +3743,15 @@ def main() -> int:
                   f"{tool}:134"),
         parts_row("variant", VARIANT_MODES, "full", f"{tool}:37"),
     ]
+    for mode in ("cross", "self102"):
+        t = s2t["timed"][mode]
+        kernels.append(row(
+            f"decode_attention ({mode})", "decode_attention.cu",
+            "none: the JAX package has no text decoder", s2t["launches"],
+            {"max_abs_err": max(s2t["max_abs_err"].values()),
+             "ms": t["us"] / 1e3, "plain_ms": t["plain_us"] / 1e3,
+             "bound": (t["bound_us"] / 1e3, "bytes"),
+             "library_ms": t["library_us"] / 1e3}))
     assert all(k["launches"] > 0 for k in kernels), kernels
     log(smi_line())            # again here, beside the numbers it qualifies
     log(json.dumps({"kernels": kernels}))
