@@ -10,8 +10,8 @@ written once in q's dtype:
 
 - self mode (``pos`` given): first writes each row's new key and value
   (``k_new``, ``v_new``) into the caches at ``pos``, a [1] int64 tensor
-  on the device (so one captured CUDA graph serves every position), then
-  attends over cache positions 0 .. pos only;
+  on the device (so one captured CUDA graph of a decode step serves every
+  position of the loop), then attends over cache positions 0 .. pos only;
 - cross mode: attends over every key under an optional additive fp32
   ``bias`` [R, Lk] (finfo.min on padded frames; a row with no valid frame
   gets uniform weights, as softmax gives).
@@ -24,7 +24,9 @@ Two implementations of one function live here:
 - :func:`decode_attention_plain`, in PyTorch: CPU tensors take it. In
   fp32 its ops are HF's (the scaled query's product, the additive bias,
   softmax, the product with v); in bf16 it keeps the scores and the
-  probabilities in fp32, as the kernel does.
+  probabilities in fp32, as the kernel does. In self mode it reads the
+  whole cache, the positions past ``pos`` at finfo.min, which weigh
+  exactly 0, where the kernel stops at ``pos``.
 - the CUDA kernel (``csrc/decode_attention.cu``), launched by
   :func:`decode_attention` for CUDA tensors. A CUDA tensor never falls
   back to the plain version: the wrapper launches the kernel or raises.
@@ -85,19 +87,18 @@ def decode_attention_plain(q, k, v, scale: float, *,
                            pos: Optional[torch.Tensor] = None,
                            k_new: Optional[torch.Tensor] = None,
                            v_new: Optional[torch.Tensor] = None,
-                           bias: Optional[torch.Tensor] = None,
-                           window: Optional[int] = None) -> torch.Tensor:
+                           bias: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
     """The PyTorch version. In self mode it writes the caches at ``pos``
-    and attends over their first ``window`` positions (default all) with
-    those past ``pos`` masked by finfo.min, which weighs them 0 exactly."""
+    and attends over all their positions, those past ``pos`` masked by
+    finfo.min, which weighs them 0 exactly."""
     R, H, Lk, d = k.shape
     qh = q.view(R, 1, H, d).transpose(1, 2)
     if pos is not None:
         k.index_copy_(2, pos, k_new.view(R, 1, H, d).transpose(1, 2))
         v.index_copy_(2, pos, v_new.view(R, 1, H, d).transpose(1, 2))
-        W = Lk if window is None else window
-        k, v = k[:, :, :W], v[:, :, :W]
-        bias = torch.where(torch.arange(W, device=q.device) <= pos, 0.0, NEG)
+        bias = torch.where(torch.arange(Lk, device=q.device) <= pos, 0.0,
+                           NEG)
     elif bias is not None:
         bias = bias.view(R, 1, 1, Lk)
     s = (qh.float() * scale) @ k.float().transpose(-1, -2)
@@ -129,16 +130,14 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      scale: float, *, pos: Optional[torch.Tensor] = None,
                      k_new: Optional[torch.Tensor] = None,
                      v_new: Optional[torch.Tensor] = None,
-                     bias: Optional[torch.Tensor] = None,
-                     window: Optional[int] = None) -> torch.Tensor:
+                     bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """softmax(scale * q k^T + bias) @ v -> [R, H * d] in q's dtype.
 
     q: [R, H * d]; k, v: [R, H, Lk, d]; one dtype, float32 or bfloat16;
     the kernel takes d = 64, the plain version any. Self mode: ``pos`` an
     int64 [1] tensor and ``k_new``, ``v_new`` shaped like q, written into
-    k and v at ``pos`` first; only positions 0 .. pos are attended
-    (``window``, the positions the plain version reads, must exceed pos;
-    the kernel needs none). Cross mode: ``bias`` None or float32 [R, Lk].
+    k and v at ``pos`` first; only positions 0 .. pos are attended. Cross
+    mode: ``bias`` None or float32 [R, Lk].
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
     (or raise); any other device raises. The kernel has no backward, so
@@ -150,7 +149,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, k, v, pos, k_new, v_new, bias, q.device.type != "cpu")
     kw = dict(pos=pos, k_new=k_new, v_new=v_new, bias=bias)
     if q.device.type == "cpu":
-        return decode_attention_plain(q, k, v, scale, window=window, **kw)
+        return decode_attention_plain(q, k, v, scale, **kw)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention runs on cpu (plain) or cuda "
                          f"(kernel), not {q.device}")

@@ -26,14 +26,14 @@ batch's largest cap, known on the host from the lengths, and freezes
 finished rows on the device, so no step waits on the card. The
 self-attention K/V cache is static and preallocated, the cross-attention
 K/V is computed once per device batch (span ``decoder.cross_kv``), and on
-a CUDA device each step of the loop (span ``decoder.loop``) replays a CUDA
-graph per (rows, adaptor frames, attention window) key (span
-``decoder.graph``, ``mode`` capture / replay / eager, ``attn_launches``).
-Each layer's self- and cross-attention is one launch of
-``models/decode_attention.py``'s kernel, which writes the step's key and
-value into the cache and attends over positions 0 .. pos; its plain
-version (the CPU's) reads a window of the cache that grows in steps of
-:data:`WINDOW` positions.
+a CUDA device every position of the loop (span ``decoder.loop``) replays
+one CUDA graph of a step per (rows, adaptor frames, dtype, target
+language) key (span ``decoder.graph``, ``mode`` capture / replay / eager,
+``attn_launches``; the graphs' capture and replay live in
+``models/cuda_graphs.py``). Each layer's self- and cross-attention is one
+launch of ``models/decode_attention.py``'s kernel, which writes the step's
+key and value into the cache at the position held on the device and
+attends over positions 0 .. pos.
 
 Departures from HF, each so that a row's result is its result alone:
 padded encoder frames are zeroed after the adaptor's LayerNorms, before
@@ -50,15 +50,10 @@ casts per call like ``Wav2Vec2Bert``. Logits come out in the compute dtype.
 
 from __future__ import annotations
 
-import collections
 import dataclasses
-import itertools
-import logging
 import math
 from fractions import Fraction
-from typing import (
-    Any, Callable, Collection, Dict, NamedTuple, Optional, Sequence, Tuple,
-)
+from typing import Any, Callable, Collection, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -67,7 +62,7 @@ import torch.nn.functional as F
 from audio_processor_tpu_torch.dsp.fbank import (
     FRAME_LENGTH, HOP_LENGTH, STRIDE,
 )
-from audio_processor_tpu_torch.models import _cuda_call
+from audio_processor_tpu_torch.models import _cuda_call, cuda_graphs
 from audio_processor_tpu_torch.models.decode_attention import (
     decode_attention,
 )
@@ -75,16 +70,14 @@ from audio_processor_tpu_torch.models.quant import (
     QuantLinear, is_quantized, quantize_linears,
 )
 from audio_processor_tpu_torch.models.wav2vec2bert import (
-    QUANTIZED as ENCODER_QUANTIZED, ConformerEncoder, GraphCache,
-    ParallelGroups, W2VBertConfig, dense, layer_norm,
+    QUANTIZED as ENCODER_QUANTIZED, ConformerEncoder, ParallelGroups,
+    W2VBertConfig, dense, layer_norm,
 )
 from audio_processor_tpu_torch.obs import profiler
 
-logger = logging.getLogger(__name__)
-
 MODEL_TYPE = "seamless_m4t_v2_s2t"
 CTC_MODEL_TYPE = "w2v_bert_ctc"    # asr_model_type's default
-WINDOW = 32           # the self-attention window grows in these steps
+CACHE_ALIGN = 32      # the self K/V cache's length is a multiple of this
 NEG = torch.finfo(torch.float32).min
 
 
@@ -381,19 +374,18 @@ class DecoderLayer(nn.Module):
         self.ffn = DecoderFFN(h, cfg.decoder_ffn_dim)
         self.ffn_layer_norm = nn.LayerNorm(h)
 
-    def step(self, x, k_cache, v_cache, pos, window, ck, cv, enc_bias):
+    def step(self, x, k_cache, v_cache, pos, ck, cv, enc_bias):
         """One position of each row: x [B, 1, H]; its key and value go into
         the caches [B, nh, C, d] at ``pos`` (a [1] device tensor), and it
-        attends over cache positions 0 .. pos (the plain version reads the
-        first ``window``) and over the cross K/V under ``enc_bias`` [B, F],
-        each in one :func:`decode_attention`."""
+        attends over cache positions 0 .. pos and over the cross K/V under
+        ``enc_bias`` [B, F], each in one :func:`decode_attention`."""
         B = x.shape[0]
         sa = self.self_attn
         h = layer_norm(self.self_attn_layer_norm, x)
         o = decode_attention(
             _dense(sa.q_proj, h).view(B, -1), k_cache, v_cache, self.scaling,
             pos=pos, k_new=_dense(sa.k_proj, h).view(B, -1),
-            v_new=_dense(sa.v_proj, h).view(B, -1), window=window)
+            v_new=_dense(sa.v_proj, h).view(B, -1))
         x = x + _dense(sa.out_proj, o.view(B, 1, -1))
         ca = self.cross_attention
         h = layer_norm(self.cross_attention_layer_norm, x)
@@ -404,29 +396,23 @@ class DecoderLayer(nn.Module):
         return x + _dense(self.ffn.fc2, F.relu(_dense(self.ffn.fc1, h)))
 
 
-class _StepGraph(NamedTuple):
-    """One window's captured step: its graph and the kernel-wrapper
-    launches (wrapper -> count) that each replay makes."""
-
-    graph: Any
-    launches: Dict[Any, int]
-
-
 class _DecodeState:
     """The static buffers of the decode loop of one (rows, adaptor frames,
-    dtype) key: self K/V caches, cross K/V, the cross-attention bias, the
-    position, each row's input token, cap and done flag, the tokens and
-    text flags emitted, and the last step's logits. A step's graph reads
-    and writes only these."""
+    dtype) key on one device: self K/V caches, cross K/V, the
+    cross-attention bias, the position, each row's input token, cap and
+    done flag, the tokens and text flags emitted, and the last step's
+    logits; and the key's step graphs by target language, which read and
+    write only these. It lives among the decoder's graphs on its device
+    (``dg``), so new weight storage drops it with them."""
 
     def __init__(self, dec: "TextDecoder", rows: int, frames: int,
-                 dtype: torch.dtype, device: torch.device):
+                 dtype: torch.dtype, dg: cuda_graphs.DeviceGraphs):
         cfg = dec.cfg
         nl, nh = cfg.decoder_layers, cfg.decoder_attention_heads
         d = cfg.hidden_size // nh
         C = dec.cache_len
         with torch.inference_mode(False):   # written in place at any mode
-            z = dict(device=device)
+            z = dict(device=dg.device)
             self.k = torch.zeros(nl, rows, nh, C, d, dtype=dtype, **z)
             self.v = torch.zeros_like(self.k)
             self.ck = torch.zeros(nl, rows, nh, frames, d, dtype=dtype, **z)
@@ -440,7 +426,8 @@ class _DecodeState:
             self.ids = torch.zeros(rows, n, dtype=torch.long, **z)
             self.text = torch.zeros(rows, n, dtype=torch.bool, **z)
             self.logits = torch.zeros(rows, cfg.vocab_size, dtype=dtype, **z)
-        self.graphs: Dict[tuple, Optional[_StepGraph]] = {}
+        self.dg = dg
+        self.graphs: Dict[int, Optional[cuda_graphs.Graph]] = {}
 
 
 class TextDecoder(nn.Module):
@@ -456,14 +443,13 @@ class TextDecoder(nn.Module):
                                     range(cfg.decoder_layers))
         self.layer_norm = nn.LayerNorm(h)
         self.embed_scale = math.sqrt(h) if cfg.scale_embedding else 1.0
-        self.cache_len = -(-(rule.max_new_tokens + 1) // WINDOW) * WINDOW
+        self.cache_len = -(-(rule.max_new_tokens + 1) // CACHE_ALIGN) \
+            * CACHE_ALIGN
         if self.cache_len > cfg.max_position_embeddings:
             raise ValueError(f"max_new_tokens {rule.max_new_tokens} needs "
                              "more positions than the model has")
         self._positions: Dict[torch.device, torch.Tensor] = {}
-        self._states: Dict[tuple, _DecodeState] = {}
-        self._state_ptrs: Optional[tuple] = None
-        self._graphs = GraphCache()    # the step graphs' pool and stream
+        self._graphs = cuda_graphs.GraphCache()   # loop states, step graphs
         # tap_steps(steps) -> generated-token indices whose logits the loop
         # keeps in ``tapped`` (index -> [B, vocab] clone); None keeps none.
         self.tap_steps: Optional[Callable[[int], Collection[int]]] = None
@@ -483,16 +469,13 @@ class TextDecoder(nn.Module):
     def _state(self, rows: int, frames: int, dtype, device) -> _DecodeState:
         """The loop's buffers of this key, made on its first use; a weight
         put in other storage drops every key and its graphs."""
-        ptrs = tuple(t.data_ptr() for t in itertools.chain(
-            self.parameters(), self.buffers()))
-        key = (device, rows, frames, dtype)
-        with self._graphs.lock:
-            if ptrs != self._state_ptrs:
-                self._states, self._state_ptrs = {}, ptrs
-            st = self._states.get(key)
+        dg = self._graphs.on(device, cuda_graphs.storage_key(self))
+        key = (rows, frames, dtype)
+        with dg.lock:
+            st = dg.entries.get(key)
             if st is None:
-                st = self._states[key] = _DecodeState(self, rows, frames,
-                                                      dtype, device)
+                st = dg.entries[key] = _DecodeState(self, rows, frames,
+                                                    dtype, dg)
         return st
 
     def cross_kv(self, st: _DecodeState, enc: torch.Tensor,
@@ -508,7 +491,7 @@ class TextDecoder(nn.Module):
                 st.cv[i].copy_(_heads(ca.v_proj, enc, layer.nh))
             st.enc_bias.copy_(torch.where(enc_mask, 0.0, NEG))
 
-    def _step(self, st: _DecodeState, window: int, lang_id: int) -> None:
+    def _step(self, st: _DecodeState, lang_id: int) -> None:
         """One position of every row, all on the device: embed the input
         token at ``st.pos``, run the layers, the LM head and the greedy
         choice, record a generated token (position p gives token p - 1)
@@ -521,8 +504,8 @@ class TextDecoder(nn.Module):
             .index_select(0, pos + cfg.pad_token_id + 1)
         x = x.to(dtype)[:, None]
         for i, layer in enumerate(self.layers):
-            x = layer.step(x, st.k[i], st.v[i], pos, window, st.ck[i],
-                           st.cv[i], st.enc_bias)
+            x = layer.step(x, st.k[i], st.v[i], pos, st.ck[i], st.cv[i],
+                           st.enc_bias)
         h = layer_norm(self.layer_norm, x)[:, 0]
         st.logits.copy_(F.linear(h, self.embed_tokens.weight.to(dtype)))
         nxt = greedy(st.logits, cfg.pad_token_id)
@@ -553,19 +536,21 @@ class TextDecoder(nn.Module):
     def decode(self, st: _DecodeState, caps: torch.Tensor, steps: int,
                lang_id: int):
         """The loop of :meth:`generate` over ``st`` (cross K/V in place),
-        in span ``decoder.loop``."""
+        in span ``decoder.loop``: positions 0 .. steps, eagerly on the CPU
+        or with autograd on, else on the key's step graph
+        (:meth:`_graph_loop`)."""
         B = st.tok.shape[0]
         self.reset(st, caps)
         taps = set(self.tap_steps(steps)) if self.tap_steps else set()
         self.tapped = {}
         with profiler.span("decoder.loop", rows=B, steps=steps,
                            cap_max=steps) as sp:
-            pos = 0
-            while pos <= steps:
-                window = self.window(pos)
-                n = min(window, steps + 1) - pos     # positions this window
-                self._run(st, window, pos, n, lang_id, taps)
-                pos += n
+            if st.pos.device.type != "cuda" or torch.is_grad_enabled():
+                for p in range(steps + 1):
+                    self._step(st, lang_id)
+                    self._tap(st, p, taps)
+            else:
+                self._graph_loop(st, steps, lang_id, taps)
             attrs = None if sp is None else sp.attrs
             ids, text = st.ids[:, :steps].clone(), st.text[:, :steps].clone()
         return ids, text, attrs
@@ -579,95 +564,49 @@ class TextDecoder(nn.Module):
         st.ids.fill_(self.cfg.pad_token_id)
         st.text.zero_()
 
-    def window(self, pos: int) -> int:
-        """The attention window of position ``pos``."""
-        return min(-(-(pos + 1) // WINDOW) * WINDOW, self.cache_len)
-
     def _tap(self, st, pos, taps) -> None:
         if pos - 1 in taps:
             self.tapped[pos - 1] = st.logits.clone()
 
-    def _run(self, st, window, pos, n, lang_id, taps) -> None:
-        """Positions pos .. pos + n - 1 at one window: eagerly on the CPU
-        or with autograd on; else by the window's CUDA graph (captured on
-        its first use, after one eager step), in span ``decoder.graph``."""
-        dev = st.pos.device
-        if dev.type != "cuda" or torch.is_grad_enabled():
-            for p in range(pos, pos + n):
-                self._step(st, window, lang_id)
-                self._tap(st, p, taps)
-            return
+    def _graph_loop(self, st, steps, lang_id, taps) -> None:
+        """Positions 0 .. steps by the step graph of ``lang_id`` in ``st``,
+        in span ``decoder.graph``: on the key's first use one eager step,
+        the capture, then replays; later, replays only. A key whose capture
+        failed runs eagerly. The span's ``attn_launches`` counts the
+        decode-attention launches of these steps, a replay's being its
+        capture's."""
         B, La = st.ck.shape[1], st.ck.shape[3]
-        with profiler.span("decoder.graph", rows=B, frames=La, window=window,
-                           steps=n) as sp:
-            mode, launched = self._replay(st, window, pos, n, lang_id, taps)
+        with profiler.span("decoder.graph", rows=B, frames=La,
+                           steps=steps + 1) as sp:
+            g = st.graphs.get(lang_id, False)   # False: not yet captured
+            mode, launched = ("replay" if g else "eager"), 0
+            for p in range(steps + 1):
+                if g:
+                    st.dg.replay(g)
+                    launched += g.launches.get(decode_attention, 0)
+                else:
+                    launched += self._eager_step(st, lang_id)
+                    if g is False:
+                        # the eager step filled the lazy state that a
+                        # capture cannot make
+                        g = st.dg.capture(
+                            st.graphs, lang_id,
+                            lambda: self._step(st, lang_id),
+                            f"a decoder step ({B} rows, {La} frames)")
+                        mode = "capture" if g else "eager"
+                self._tap(st, p, taps)
             if sp is not None:
                 sp.attrs["mode"] = mode
-                sp.attrs["attn_launches"] = launched[decode_attention]
+                sp.attrs["attn_launches"] = launched
 
-    def _replay(self, st, window, pos, n, lang_id, taps):
-        """Returns the mode and the kernel-wrapper launches (wrapper ->
-        count) of these steps, each also added to its wrapper's count: an
-        eager step's own, a replay's its capture's."""
-        dg = self._graphs.on(st.pos.device, self._state_ptrs)
-        key = (window, lang_id)
-        entry = st.graphs.get(key, False)
-        mode = "replay"
-        launched = collections.Counter()
-        p = pos
-        if entry is False:
-            # an eager step first fills the lazy state a capture cannot make
-            launched.update(self._eager_step(st, window, lang_id))
-            self._tap(st, p, taps)
-            p += 1
-            with dg.lock:
-                entry = st.graphs[key] = self._capture(dg, st, window,
-                                                       lang_id)
-            mode = "capture" if entry is not None else "eager"
-        for p in range(p, pos + n):
-            if entry is None:
-                launched.update(self._eager_step(st, window, lang_id))
-            else:
-                with dg.lock:
-                    cur = torch.cuda.current_stream(st.pos.device)
-                    if dg.last is not None and dg.last[0] != cur:
-                        cur.wait_event(dg.last[1])
-                    entry.graph.replay()
-                    done = torch.cuda.Event()
-                    done.record(cur)
-                    dg.last = (cur, done)
-                launched.update(entry.launches)
-            self._tap(st, p, taps)
-        for wrapper, count in launched.items():
-            wrapper.launches += count
-        return mode, launched
-
-    def _eager_step(self, st, window, lang_id) -> Dict:
+    def _eager_step(self, st, lang_id) -> int:
+        """One eager step; its decode-attention launches (counted on this
+        thread alone, then added to the wrappers')."""
         with _cuda_call.tally_launches() as launched:
-            self._step(st, window, lang_id)
-        return launched
-
-    def _capture(self, dg, st, window, lang_id) -> Optional[_StepGraph]:
-        dev = st.pos.device
-        try:
-            cur = torch.cuda.current_stream(dev)
-            dg.stream.wait_stream(cur)
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.device(dev), torch.cuda.stream(dg.stream), \
-                    _cuda_call.tally_launches() as launches:
-                graph.capture_begin(pool=dg.pool,
-                                    capture_error_mode="thread_local")
-                try:
-                    self._step(st, window, lang_id)
-                finally:
-                    graph.capture_end()
-            cur.wait_stream(dg.stream)
-        except Exception:   # any failure leaves this key eager
-            logger.warning("CUDA graph capture of a decoder step (%d rows, "
-                           "window %d) failed; it runs eagerly",
-                           st.tok.shape[0], window, exc_info=True)
-            return None
-        return _StepGraph(graph, launches)
+            self._step(st, lang_id)
+        for wrapper, n in launched.items():
+            wrapper.launches += n
+        return launched.get(decode_attention, 0)
 
 
 def greedy(logits: torch.Tensor, pad_id: int) -> torch.Tensor:

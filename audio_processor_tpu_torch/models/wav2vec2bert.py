@@ -36,17 +36,15 @@ Conventions kept from the JAX package:
 - CUDA graphs: inference on a CUDA device (autograd off, no parallel
   groups, no ``remat``) replays one captured graph per input shape
   instead of launching each of the encoder's kernels from Python
-  (:meth:`Wav2Vec2Bert.forward`).
+  (:meth:`Wav2Vec2Bert.forward`; the graphs' capture and replay live in
+  ``models/cuda_graphs.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-import itertools
-import logging
 import math
-import threading
 from typing import Any, Dict, NamedTuple, Optional
 
 import numpy as np
@@ -55,7 +53,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
-from audio_processor_tpu_torch.models import _cuda_call
+from audio_processor_tpu_torch.models import cuda_graphs
 from audio_processor_tpu_torch.models.flash_attention import flash_attention
 from audio_processor_tpu_torch.models.flash_rel_attention import (
     flash_rel_attention,
@@ -68,8 +66,6 @@ from audio_processor_tpu_torch.parallel.collectives import (
     copy_to_group, gather_partial, gather_replicated, group_rank, group_size,
     reduce_from_group,
 )
-
-logger = logging.getLogger(__name__)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -348,58 +344,12 @@ class FeatureProjection(nn.Module):
                                     cfg.hidden_size)
 
 
-class _Graph(NamedTuple):
-    """One captured forward: its graph, static inputs and logits, and the
-    kernel-wrapper launches (wrapper -> count) that each replay makes."""
-
-    graph: Any
-    features: torch.Tensor
-    mask: torch.Tensor
-    logits: torch.Tensor
-    launches: Dict[Any, int]
-
-
-class _DeviceGraphs:
-    """A model's graphs on one device. They share one memory pool, so no
-    two replays may overlap on the card: ``lock`` covers the input copies,
-    the replay and the clone of its logits, and a replay on another stream
-    than the last one first waits on the last one's event."""
-
-    def __init__(self, device: torch.device):
-        self.entries: Dict[tuple, Optional[_Graph]] = {}   # None: eager
-        self.pool = torch.cuda.graph_pool_handle()
-        self.stream = torch.cuda.Stream(device)     # the capture stream
-        self.lock = threading.Lock()
-        self.last = None                # (stream, event) of the last replay
-
-
-class GraphCache:
-    """A model's CUDA graphs of its forward, per device, all over one set of
-    parameter storage: a key over other storage drops them. A copy or
-    pickle of the model starts with an empty cache."""
-
-    def __init__(self):
-        self.ptrs: Optional[tuple] = None
-        self.devices: Dict[torch.device, _DeviceGraphs] = {}
-        self.lock = threading.Lock()
-
-    def __reduce__(self):
-        return (GraphCache, ())
-
-    def on(self, device: torch.device, ptrs: tuple) -> _DeviceGraphs:
-        with self.lock:
-            if ptrs != self.ptrs:
-                self.ptrs, self.devices = ptrs, {}
-            dg = self.devices.get(device)
-            if dg is None:
-                dg = self.devices[device] = _DeviceGraphs(device)
-            return dg
-
-
 class ConformerEncoder(nn.Module):
     """The conformer stack without a head: feature projection and
-    ``num_hidden_layers`` conformer layers (:meth:`_body`), and the CUDA
-    graph machinery of :meth:`forward`. A subclass's :meth:`_encode` puts
+    ``num_hidden_layers`` conformer layers (:meth:`_body`), and
+    :meth:`forward`, which on the card replays a CUDA graph per
+    :meth:`graph_key` (``models/cuda_graphs.py``: the graphs, their pool
+    and their replays). A subclass's :meth:`_encode` puts
     its head on the body: the CTC head (:class:`Wav2Vec2Bert`) or the
     speech-to-text encoder's tail and length adaptor
     (``models/seamless_s2t.py``)."""
@@ -411,7 +361,7 @@ class ConformerEncoder(nn.Module):
         self.layers = nn.ModuleList(ConformerLayer(cfg)
                                     for _ in range(cfg.num_hidden_layers))
         self.parallel = ParallelGroups()
-        self._graphs = GraphCache()
+        self._graphs = cuda_graphs.GraphCache()
 
     def set_parallel(self, groups: ParallelGroups) -> None:
         """Compute over ``groups`` from now on (parallel/mesh.py
@@ -471,68 +421,24 @@ class ConformerEncoder(nn.Module):
         attention path, and the storage of every parameter and buffer. A
         tensor reassigned to other storage makes another key; an in-place
         update does not, and a replay reads it."""
-        ptrs = tuple(t.data_ptr() for t in itertools.chain(
-            self.parameters(), self.buffers()))
         return (x.device, tuple(x.shape), x.dtype, tuple(mask.shape),
-                mask.dtype, dtype, impl, ptrs)
+                mask.dtype, dtype, impl, cuda_graphs.storage_key(self))
 
     def _graph_forward(self, x, mask, dtype, impl):
         key = self.graph_key(x, mask, dtype, impl)
         dg = self._graphs.on(x.device, key[-1])
-        entry = dg.entries.get(key, False)
-        if entry is None:
+        g = dg.entries.get(key, False)
+        if g is None:
             return self._encode(x, mask, dtype, impl), "eager"
-        if entry is False:
+        if g is False:
             # The eager run first fills the lazy state (kernel attributes,
             # library handles, cached indexes) that a capture cannot make.
             logits = self._encode(x, mask, dtype, impl)
-            with dg.lock:
-                if key not in dg.entries:
-                    dg.entries[key] = self._capture(dg, x, mask, dtype, impl)
-            return logits, "capture" if dg.entries[key] else "eager"
-        with dg.lock:
-            cur = torch.cuda.current_stream(x.device)
-            if dg.last is not None and dg.last[0] != cur:
-                cur.wait_event(dg.last[1])
-            entry.features.copy_(x)
-            entry.mask.copy_(mask)
-            entry.graph.replay()
-            logits = entry.logits.clone()
-            done = torch.cuda.Event()
-            done.record(cur)
-            dg.last = (cur, done)
-        for wrapper, n in entry.launches.items():
-            wrapper.launches += n
-        return logits, "replay"
-
-    def _capture(self, dg: _DeviceGraphs, x, mask, dtype,
-                 impl) -> Optional[_Graph]:
-        """Capture forward at x's and mask's shapes on ``dg``'s side stream
-        into its pool; None (and one warning) if the capture fails."""
-        dev = x.device
-        try:
-            with torch.inference_mode(False):   # copied into at any mode
-                features = torch.empty(x.shape, dtype=x.dtype, device=dev)
-                static_mask = torch.empty(mask.shape, dtype=mask.dtype,
-                                          device=dev)
-            cur = torch.cuda.current_stream(dev)
-            dg.stream.wait_stream(cur)
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.device(dev), torch.cuda.stream(dg.stream), \
-                    _cuda_call.tally_launches() as launches:
-                graph.capture_begin(pool=dg.pool,
-                                    capture_error_mode="thread_local")
-                try:
-                    logits = self._encode(features, static_mask, dtype, impl)
-                finally:
-                    graph.capture_end()
-            cur.wait_stream(dg.stream)
-        except Exception:   # any failure leaves this key eager
-            logger.warning("CUDA graph capture of the encoder at %s on %s "
-                           "failed; that shape runs eagerly", tuple(x.shape),
-                           dev, exc_info=True)
-            return None
-        return _Graph(graph, features, static_mask, logits, launches)
+            g = dg.capture(dg.entries, key,
+                           lambda f, m: self._encode(f, m, dtype, impl),
+                           f"the encoder at {tuple(x.shape)}", like=(x, mask))
+            return logits, "capture" if g else "eager"
+        return dg.replay(g, x, mask), "replay"
 
     def _encode(self, input_features: torch.Tensor,
                 attention_mask: torch.Tensor, dtype: torch.dtype, impl: str,
@@ -548,7 +454,6 @@ class ConformerEncoder(nn.Module):
         ``dtype`` (this rank's frames under sequence parallel)."""
         B, L, _ = input_features.shape
         pad_mask = attention_mask.float()
-        attn_bias = ((1.0 - pad_mask) * -1e9)[:, None, None, :]
         x = input_features
         sp = self.parallel.seq
         if sp is not None:
@@ -556,7 +461,8 @@ class ConformerEncoder(nn.Module):
             pad = (-L) % n
             x = F.pad(x, (0, 0, 0, pad))
             pad_mask = F.pad(pad_mask, (0, pad))
-            attn_bias = ((1.0 - pad_mask) * -1e9)[:, None, None, :]
+        attn_bias = ((1.0 - pad_mask) * -1e9)[:, None, None, :]
+        if sp is not None:
             Ll = (L + pad) // n
             s = group_rank(sp) * Ll
             x, pad_mask = x[:, s:s + Ll], pad_mask[:, s:s + Ll]

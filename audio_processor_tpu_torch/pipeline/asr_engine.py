@@ -11,7 +11,7 @@ batches, and the dispatch/fetch split (:meth:`dispatch_chunks` enqueues
 every sub-batch on the device and returns a closure that fetches and
 decodes, so the pipeline overlaps batch N+1's device work with batch
 N's host work; CUDA launches are asynchronous like JAX dispatch). The
-encoder replays a CUDA graph per shape (models/wav2vec2bert.py), so
+encoder replays a CUDA graph per shape (models/cuda_graphs.py), so
 enqueueing takes far less time than the card runs; the engine keeps at
 most ``PACE_DEPTH`` device batches queued behind the one running, so a
 sweep cannot run ahead of the card by more than that. The batches run on

@@ -191,8 +191,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
    encoder's graph equals its eager body bit for bit with 24 flash_rel
    launches per call, and 103 graph-replayed decode steps equal the loop
    run eagerly step by step (tokens, and logits at three steps, bit for
-   bit); the decode-attention kernel (``csrc/decode_attention.cu``)
-   against its plain version at 48 rows x 16 heads (self at positions
+   bit, the key's step graph captured once in the first loop's one
+   ``decoder.graph`` span); the decode-attention kernel
+   (``csrc/decode_attention.cu``) against its plain version at 48 rows x
+   16 heads (self at positions
    0/31/32/102, cross over 161 frames, 157 valid and ragged rows, one with
    none; bf16 and fp32), its us per launch beside its byte bound, the
    plain version's and the library's (``scaled_dot_product_attention``),
@@ -3557,7 +3559,7 @@ def s2t_phase(seed: int) -> dict:
             dec.reset(st, caps)
             kept = {}
             for pos in range(steps + 1):
-                dec._step(st, dec.window(pos), lang)
+                dec._step(st, lang)
                 if pos - 1 in taps:
                     kept[pos - 1] = st.logits.clone()
             return st.ids[:, :steps].clone(), kept
@@ -3566,7 +3568,14 @@ def s2t_phase(seed: int) -> dict:
         ids_e, logits_e = eager()
         dec.tap_steps = lambda n: taps
         for call in ("capture", "replay"):
-            ids, text, _ = dec.generate(want, emask, caps, steps, lang)
+            with profiler.recording_spans():
+                seen = {sp.id for sp in profiler.spans()}
+                ids, text, _ = dec.generate(want, emask, caps, steps, lang)
+                modes = [sp.attrs["mode"] for sp in profiler.spans()
+                         if sp.id not in seen and sp.name == "decoder.graph"]
+            if modes != [call]:
+                raise AssertionError(f"[13 s2t] decode {call}: spans of "
+                                     f"modes {modes}")
             diff = {g: float((dec.tapped[g].float()
                               - logits_e[g].float()).abs().max())
                     for g in taps}
@@ -3576,6 +3585,7 @@ def s2t_phase(seed: int) -> dict:
                     f"{torch.equal(ids, ids_e)}, logit max diff {diff}")
             assert int(text.sum()) == 48 * steps, "a row stopped early"
         dec.tap_steps = None
+        assert list(st.graphs) == [lang], list(st.graphs)
         out["decode_attention"] = decode_attention_check(st, seed)
         da_fn.launches = 0              # the main path's run alone, below
         with profiler.recording_spans():
@@ -3594,8 +3604,7 @@ def s2t_phase(seed: int) -> dict:
         assert launches == per_step * (steps + 1) == sum(
             sp.attrs["attn_launches"] for sp in spans), launches
         out["decode_attention"]["launches"] = launches
-        out["step_kernels"] = step_kernels(st.graphs[(dec.window(steps),
-                                                      lang)].graph)
+        out["step_kernels"] = step_kernels(st.graphs[lang].graph)
         for label, fn in (("eager", eager),
                           ("replay", lambda: dec.decode(st, caps, steps,
                                                         lang))):

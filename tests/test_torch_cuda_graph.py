@@ -2,6 +2,8 @@
 replay gives the eager logits bit for bit, a replay's result is its own,
 each replay counts the kernel launches its capture recorded, and the
 profiler sees a replay's kernels under the graph launch that ran them.
+The text decoder's step graphs (``models/seamless_s2t.py``): one capture
+per decode key, and a replayed loop equal to eager steps bit for bit.
 
 Marked ``cuda``: every test skips without a card. This file imports no
 JAX, so on the card it runs without the JAX conftest:
@@ -126,3 +128,54 @@ def test_profiler_sees_the_kernels_of_a_replay(card, tmp_path):
     assert len(launches) == 1 and len(kernels) == 24
     assert {e["args"].get("correlation") for e in kernels} == launches
     assert torch.equal(after, eager)
+
+
+def test_a_decode_loop_captures_one_step_graph_per_key(card):
+    """A small bf16 decoder's loop of 70 tokens, past positions 32 and 64:
+    one ``decoder.graph`` span per loop, captured on its key's first loop
+    (a target language is part of the key) and replayed after, one step
+    graph per key, and the ids and tapped logits of the graph's loops
+    equal to eager steps bit for bit."""
+    from audio_processor_tpu_torch.models import seamless_s2t as s2t
+
+    cfg = s2t.S2TConfig(hidden_size=128, num_hidden_layers=1,
+                        num_attention_heads=2, intermediate_size=256,
+                        decoder_layers=3, decoder_attention_heads=2,
+                        decoder_ffn_dim=256, vocab_size=300)
+    steps, lang = 70, 299
+    model = s2t.build_synthetic(cfg, card, seed=3,
+                                rule=s2t.DecodeRule(steps, 0.6, 8)) \
+        .cast_decoder(torch.bfloat16)
+    dec = model.text_decoder
+    gen = torch.Generator(device=card).manual_seed(0)
+    enc = torch.randn(4, 12, 128, device=card, generator=gen) \
+        .to(torch.bfloat16)
+    mask = torch.arange(12, device=card)[None] < torch.tensor(
+        [12, 9, 3, 0], device=card)[:, None]
+    caps = torch.tensor([steps, 50, 10, 0], device=card)
+    taps = {0, 31, 32, 63, 64, steps - 1}
+    with torch.inference_mode():
+        st = dec._state(4, 12, torch.bfloat16, enc.device)   # generate's
+        dec.cross_kv(st, enc, mask)
+        dec.reset(st, caps)
+        want = {}
+        for p in range(steps + 1):
+            dec._step(st, lang)
+            if p - 1 in taps:
+                want[p - 1] = st.logits.clone()
+        want_ids = st.ids[:, :steps].clone()
+        dec.tap_steps = lambda n: taps
+        with profiler.recording_spans():
+            seen = {s.id for s in profiler.spans()}
+            runs = [(dec.generate(enc, mask, caps, steps, lg)[0],
+                     dict(dec.tapped)) for lg in (lang, lang, lang - 1)]
+            spans = [s for s in profiler.spans() if s.id not in seen
+                     and s.name == "decoder.graph"]
+    assert [s.attrs["mode"] for s in spans] == ["capture", "replay",
+                                                "capture"]
+    assert all(s.attrs["steps"] == steps + 1 for s in spans)
+    assert sorted(st.graphs) == [lang - 1, lang]
+    assert all(g is not None for g in st.graphs.values())
+    for ids, tapped in runs[:2]:
+        assert torch.equal(ids, want_ids)
+        assert all(torch.equal(tapped[g], want[g]) for g in taps)

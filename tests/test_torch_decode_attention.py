@@ -29,7 +29,7 @@ from audio_processor_tpu_torch.models import seamless_s2t as s2t
 
 NEG = torch.finfo(torch.float32).min
 R, H, D = 3, 4, 64
-C = 96                 # cache positions: three windows of 32
+C = 96                 # cache positions
 SCALE = D ** -0.5
 
 
@@ -58,14 +58,13 @@ def _inputs(seed, dtype, Lk=C, scale=3.0):
         v_new.to(dtype), (scale * k).to(dtype), v.to(dtype)
 
 
-def _old_self(q, k_new, v_new, k, v, pos, window):
+def _old_self(q, k_new, v_new, k, v, pos):
     """The old self-attention: cache writes, then the chain over the
-    window with the positions past ``pos`` masked."""
+    whole cache with the positions past ``pos`` masked."""
     k.index_copy_(2, pos, _heads(k_new))
     v.index_copy_(2, pos, _heads(v_new))
-    bias = torch.where(torch.arange(C)[:window] <= pos, 0.0, NEG)
-    return _chain(_heads(q) * SCALE, k[:, :, :window], v[:, :, :window],
-                  bias)[:, 0]
+    bias = torch.where(torch.arange(C) <= pos, 0.0, NEG)
+    return _chain(_heads(q) * SCALE, k, v, bias)[:, 0]
 
 
 def _cross_bias(valid, Lk):
@@ -74,21 +73,17 @@ def _cross_bias(valid, Lk):
     return torch.where(mask, 0.0, NEG)
 
 
-def _window(p):
-    return min(-(-(p + 1) // s2t.WINDOW) * s2t.WINDOW, C)
-
-
 def test_plain_is_the_old_chain_bit_for_bit_in_fp32():
-    """Self mode at positions up to and across the window edges 31/32 and
-    63/64, and cross mode over ragged frames with a row of none: equal to
-    the old chain bit for bit, caches included."""
+    """Self mode at positions up to and across 31/32 and 63/64 (the cache
+    alignment's edges) to the last, and cross mode over ragged frames with
+    a row of none: equal to the old chain bit for bit, caches included."""
     for pos in (0, 5, 30, 31, 32, 33, 63, 64, 95):
         q, kn, vn, k, v = _inputs(pos, torch.float32)
         k2, v2 = k.clone(), v.clone()
         p = torch.tensor([pos])
-        want = _old_self(q, kn, vn, k, v, p, _window(pos))
+        want = _old_self(q, kn, vn, k, v, p)
         got = da.decode_attention(q, k2, v2, SCALE, pos=p, k_new=kn,
-                                  v_new=vn, window=_window(pos))
+                                  v_new=vn)
         assert torch.equal(got, want), pos
         assert torch.equal(k2, k) and torch.equal(v2, v), pos
     q, _, _, k, v = _inputs(7, torch.float32, Lk=41)
@@ -114,9 +109,9 @@ def test_plain_agrees_with_the_old_chain_in_bf16():
         else:
             k2, v2, k3, v3 = k.clone(), v.clone(), f32[1], f32[2]
             p = torch.tensor([pos])
-            want = _old_self(q, kn, vn, k, v, p, _window(pos))
+            want = _old_self(q, kn, vn, k, v, p)
             got = da.decode_attention(q, k2, v2, SCALE, pos=p, k_new=kn,
-                                      v_new=vn, window=_window(pos))
+                                      v_new=vn)
             assert torch.equal(k2, k) and torch.equal(v2, v)
             exact = da.decode_attention(f32[0], k3, v3, SCALE, pos=p,
                                         k_new=kn.float(), v_new=vn.float())
@@ -142,19 +137,16 @@ def test_self_mode_writes_the_cache_at_pos_and_nowhere_else():
 
 def test_self_mode_attends_over_positions_up_to_pos_only():
     """Against a dense softmax over cache positions 0 .. pos, whatever
-    the later positions hold, with and without a window."""
+    the later positions hold."""
     q, kn, vn, k, v = _inputs(2, torch.float32)
     pos = 44
     k[:, :, pos + 1:] = 1e4            # would dominate if read
-    want = None
-    for window in (None, 64, 96):
-        got = da.decode_attention(q, k, v, SCALE, pos=torch.tensor([pos]),
-                                  k_new=kn, v_new=vn, window=window)
-        if want is None:
-            s = (_heads(q) * SCALE) @ k[:, :, :pos + 1].transpose(-1, -2)
-            o = torch.softmax(s, dim=-1) @ v[:, :, :pos + 1]
-            want = o.transpose(1, 2).reshape(R, H * D)
-        torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-5)
+    got = da.decode_attention(q, k, v, SCALE, pos=torch.tensor([pos]),
+                              k_new=kn, v_new=vn)
+    s = (_heads(q) * SCALE) @ k[:, :, :pos + 1].transpose(-1, -2)
+    o = torch.softmax(s, dim=-1) @ v[:, :, :pos + 1]
+    want = o.transpose(1, 2).reshape(R, H * D)
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-5)
 
 
 def test_a_row_with_no_valid_frame_weighs_every_frame_alike():

@@ -3,7 +3,8 @@ the CPU at a tiny size (2 + 2 layers, hidden 64, vocabulary 512, seeded
 weights): against the benchmark's plain reference
 (benchmark_torch/reference/seamless_s2t.py), the reference against
 transformers' ``SeamlessM4Tv2ForSpeechToText`` on the same weights, the
-``</s>``/cap rule, the batch pipeline writing detokenized rows, the CTC
+``</s>``/cap rule, the loop's states dropped with new weight storage, the
+batch pipeline writing detokenized rows, the CTC
 model unchanged by the encoder's split into body and head, int8 reaching
 the adaptor and decoder, and the configurations it refuses."""
 
@@ -17,6 +18,7 @@ import torch
 
 from audio_processor_tpu_torch import cli
 from audio_processor_tpu_torch.config import PipelineConfig
+from audio_processor_tpu_torch.models import cuda_graphs
 from audio_processor_tpu_torch.models import seamless_s2t as s2t
 from audio_processor_tpu_torch.models import wav2vec2bert as w2v
 from audio_processor_tpu_torch.models.pieces import PieceVocab
@@ -102,11 +104,11 @@ def test_adaptor_output_matches_reference():
 
 
 def test_decoder_logits_through_the_cache_match_a_full_forward():
-    """Every step's logits of the cached, windowed loop against the
+    """Every step's logits of the cached loop against the
     reference's causal forward over the tokens the loop emitted."""
     model = _model()
     feats, mask, lens = _batch()
-    caps = torch.tensor([33, 12, 0])   # row 0 crosses a 32-step window
+    caps = torch.tensor([33, 12, 0])   # row 0 runs past cache position 32
     model.text_decoder.tap_steps = lambda steps: range(steps)
     with torch.inference_mode():
         ids, text, _ = model(feats, mask, caps, 33, LANG)
@@ -188,6 +190,38 @@ def test_rows_stop_at_eos_or_their_cap():
     assert text.sum().item() == 0
     assert ids[:, 0].tolist() == [3, 3, 0]
     assert not bool(ids[:, 1:].any())
+
+
+def test_new_weight_storage_drops_the_decode_states_and_step_graphs():
+    """The decoder's loop states and their step graphs live among its
+    graphs per device, under the one storage check of
+    ``models/cuda_graphs.py``: an in-place weight update keeps a key's
+    state; a weight put in other storage drops the state and its step
+    graphs (a placeholder stands in for a graph: the CPU captures none)."""
+    dec = _model().text_decoder
+    key = (3, 9, torch.float32)
+    st = dec._state(*key, CPU)
+    st.graphs[LANG] = "a step graph"
+    assert dec._state(*key, CPU) is st
+    assert dec._state(2, 9, torch.float32, CPU) is not st
+    fc1 = dec.layers[0].ffn.fc1
+    with torch.no_grad():
+        fc1.weight.add_(1.0)
+    dg = dec._graphs.on(CPU, cuda_graphs.storage_key(dec))
+    assert dec._state(*key, CPU) is st and st.dg is dg
+    assert dg.entries[key] is st and len(dg.entries) == 2
+    fc1.weight = torch.nn.Parameter(fc1.weight.detach().clone())
+    fresh = dec._state(*key, CPU)
+    assert fresh is not st and fresh.graphs == {} and fresh.dg is not dg
+    assert list(dec._graphs.devices) == [CPU]
+    assert list(fresh.dg.entries) == [key]
+    caps = torch.tensor([4, 2, 0])
+    with torch.inference_mode():
+        dec.cross_kv(fresh, torch.randn(3, 9, 64), torch.ones(3, 9,
+                                                                dtype=bool))
+        ids, _, _ = dec.decode(fresh, caps, 4, LANG)
+    assert ids.shape == (3, 4) and bool(ids[0].all())
+    assert not bool(ids[2].any())                   # cap 0: idle
 
 
 def _s2t_config(root: Path, **kw):

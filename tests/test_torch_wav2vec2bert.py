@@ -191,6 +191,7 @@ def test_cuda_graph_rule_and_key(shared):
     import copy
     import types
 
+    from audio_processor_tpu_torch.models import cuda_graphs
     from audio_processor_tpu_torch.obs import profiler
 
     _, _, _, feats, mask = shared
@@ -233,5 +234,5 @@ def test_cuda_graph_rule_and_key(shared):
     moved = model.graph_key(x, m, torch.bfloat16, "flash_rel")
     assert moved[:-1] == key[:-1] and moved[-1] != key[-1]
     twin = copy.deepcopy(model)
-    assert isinstance(twin._graphs, tw.GraphCache)
+    assert isinstance(twin._graphs, cuda_graphs.GraphCache)
     assert twin._graphs is not model._graphs and twin._graphs.ptrs is None
