@@ -4,10 +4,11 @@ Every ``csrc/<name>.cu`` exports ``int <name>_fwd(..., void* stream)``,
 which returns the launch's cudaError_t (0: launched), and
 ``const char* <name>_error(int)``. :func:`call` builds and loads the
 library on first use (``_build``), launches on the tensors' device and
-current stream, and raises on a non-zero code; :func:`check_operands`
+current stream, and raises on a non-zero code; :func:`check_tensors`
 checks what every such interface assumes of the tensors it is handed;
 :func:`count_launch` counts a wrapper's launches, or, while the thread
-captures a CUDA graph, the capture's (:func:`tally_launches`).
+captures a CUDA graph, the capture's (:func:`tally_launches`), and
+:func:`counted` runs a function and returns the launches it made.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import contextlib
 import ctypes
 import functools
 import threading
-from typing import Dict, Iterator
+from typing import Any, Callable, Dict, Iterator, Tuple
 
 import torch
 
@@ -55,18 +56,23 @@ def refuse_autograd(name: str, *tensors) -> None:
             "torch.inference_mode() or torch.no_grad().")
 
 
-def check_operands(q: torch.Tensor, named) -> None:
+def check_tensors(device: torch.device, named) -> None:
     """Raise ValueError unless every (name, tensor) of ``named`` lies on
-    q's device, is contiguous and starts 16-byte aligned (the kernels
-    compute offsets from dense strides and use vector loads), and q's
-    B*H fits the launch grid's y dimension."""
+    ``device``, is contiguous and starts 16-byte aligned (the kernels
+    compute offsets from dense strides and use vector loads)."""
     for name, t in named:
-        if t.device != q.device:
-            raise ValueError(f"{name} on {t.device}, q on {q.device}")
+        if t.device != device:
+            raise ValueError(f"{name} on {t.device}, not on {device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def check_operands(q: torch.Tensor, named) -> None:
+    """:func:`check_tensors` on q's device, and q's B*H fits the
+    attention kernels' launch grid's y dimension."""
+    check_tensors(q.device, named)
     B, H = q.shape[:2]
     if B * H > 65535:
         raise ValueError(f"B*H={B * H} exceeds the kernel's grid limit")
@@ -86,23 +92,35 @@ def call(name: str, signature: str, device: torch.device, *args,
                            f"({error(rc).decode()})")
 
 
-def count_launch(wrapper) -> None:
-    """Add one to ``wrapper.launches``; while this thread captures a CUDA
-    graph (:func:`tally_launches`), to the capture's tally instead, since
-    nothing runs until the graph is replayed."""
+def count_launch(wrapper, n: int = 1) -> None:
+    """Add ``n`` to ``wrapper.launches``; while this thread captures a
+    CUDA graph (:func:`tally_launches`), to the capture's tally instead,
+    since nothing runs until the graph is replayed."""
     tally = getattr(_local, "tally", None)
     if tally is None:
-        wrapper.launches += 1
+        wrapper.launches += n
     else:
-        tally[wrapper] = tally.get(wrapper, 0) + 1
+        tally[wrapper] = tally.get(wrapper, 0) + n
 
 
 @contextlib.contextmanager
 def tally_launches() -> Iterator[Dict]:
     """Inside the block, this thread's :func:`count_launch` calls fill the
-    yielded {wrapper: launches} instead of the wrappers' counters."""
+    yielded {wrapper: launches} instead of the wrappers' counters (or of
+    an enclosing block's tally, which is restored after)."""
+    prev = getattr(_local, "tally", None)
     _local.tally = tally = {}
     try:
         yield tally
     finally:
-        _local.tally = None
+        _local.tally = prev
+
+
+def counted(fn: Callable[..., Any], *args) -> Tuple[Any, Dict]:
+    """``fn(*args)`` run now, and the {wrapper: launches} it made on this
+    thread, which are counted as :func:`count_launch` counts."""
+    with tally_launches() as launched:
+        out = fn(*args)
+    for wrapper, n in launched.items():
+        count_launch(wrapper, n)
+    return out, launched

@@ -600,12 +600,8 @@ class TextDecoder(nn.Module):
                 sp.attrs["attn_launches"] = launched
 
     def _eager_step(self, st, lang_id) -> int:
-        """One eager step; its decode-attention launches (counted on this
-        thread alone, then added to the wrappers')."""
-        with _cuda_call.tally_launches() as launched:
-            self._step(st, lang_id)
-        for wrapper, n in launched.items():
-            wrapper.launches += n
+        """One eager step; its decode-attention launches."""
+        _, launched = _cuda_call.counted(self._step, st, lang_id)
         return launched.get(decode_attention, 0)
 
 

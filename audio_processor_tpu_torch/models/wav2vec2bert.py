@@ -9,8 +9,13 @@ a CTC head.
 Conventions kept from the JAX package:
 
 - Params stay fp32; the compute dtype is a forward() argument and each
-  matmul casts its weight to it (``dense``). LayerNorms run in fp32.
-  Logits are fp32.
+  matmul casts its weight to it (``dense``). LayerNorms keep fp32
+  statistics: each conformer layer's six run with the residual add
+  before them and the mask or SiLU after them, through one kernel each
+  (``models/layer_norm.py::add_layer_norm``) on a bf16 CUDA input with
+  autograd recording no gradient of the layer, and through the plain
+  composition (``add_layer_norm_plain``) everywhere else: fp32 compute,
+  the CPU, training and remat. Logits are fp32.
 - Attention: ``attention_impl="flash_rel"`` runs the hand-written CUDA
   kernel that builds the relative bias inside
   (models/flash_rel_attention.py); ``"flash"`` materialises the bias
@@ -53,10 +58,13 @@ import torch.nn as nn
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
-from audio_processor_tpu_torch.models import cuda_graphs
+from audio_processor_tpu_torch.models import _cuda_call, cuda_graphs
 from audio_processor_tpu_torch.models.flash_attention import flash_attention
 from audio_processor_tpu_torch.models.flash_rel_attention import (
     flash_rel_attention,
+)
+from audio_processor_tpu_torch.models.layer_norm import (
+    add_layer_norm, add_layer_norm_plain, fused, layer_norm,
 )
 from audio_processor_tpu_torch.models.quant import (
     QuantLinear, dense_int8, is_quantized, quantize_linears,
@@ -125,12 +133,6 @@ def dense(lin: nn.Module, x: torch.Tensor) -> torch.Tensor:
         return dense_int8(lin, x)
     b = None if lin.bias is None else lin.bias.to(x.dtype)
     return F.linear(x, lin.weight.to(x.dtype), b)
-
-
-def layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
-    """LayerNorm in fp32, returned in x's dtype."""
-    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias,
-                        ln.eps).to(x.dtype)
 
 
 def _ln(cfg: W2VBertConfig, d: int) -> nn.LayerNorm:
@@ -275,7 +277,11 @@ class SelfAttention(nn.Module):
 
 
 class ConvModule(nn.Module):
-    """Conformer convolution block with causal (left-only) padding."""
+    """Conformer convolution block with causal (left-only) padding. Its
+    first ``layer_norm`` and the padding mask after it run in the caller
+    (:class:`ConformerLayer`), fused with the residual add before them:
+    forward takes that normalised, masked input and the layer's choice
+    of ``add_layer_norm`` or ``add_layer_norm_plain`` as ``norm``."""
 
     def __init__(self, cfg: W2VBertConfig):
         super().__init__()
@@ -287,9 +293,7 @@ class ConvModule(nn.Module):
         self.pointwise_conv2 = nn.Linear(h, h, bias=False)
         self.sp = None          # 'seq' group: 1/sp of the frames per rank
 
-    def forward(self, x, pad_mask):
-        x = layer_norm(self.layer_norm, x)
-        x = x * pad_mask[..., None].to(x.dtype)
+    def forward(self, x, norm=add_layer_norm_plain):
         a, g = dense(self.pointwise_conv1, x).chunk(2, dim=-1)
         x = a * torch.sigmoid(g)                                 # GLU
         K = self.depthwise_conv.kernel_size[0]
@@ -309,8 +313,8 @@ class ConvModule(nn.Module):
             y = F.conv1d(xt.double(), w.double(), groups=x.shape[-1])
         else:
             y = F.conv1d(xt, w.to(x.dtype), groups=x.shape[-1])
-        x = y.to(x.dtype).transpose(1, 2)
-        x = F.silu(layer_norm(self.depthwise_layer_norm, x))
+        x = y.to(x.dtype).transpose(1, 2)        # read as it lies
+        _, x = norm(self.depthwise_layer_norm, x, silu=True)
         return dense(self.pointwise_conv2, x)
 
 
@@ -328,12 +332,20 @@ class ConformerLayer(nn.Module):
         self.final_layer_norm = _ln(cfg, h)
 
     def forward(self, x, attn_bias, pad_mask, impl: str):
-        x = self.ffn1(layer_norm(self.ffn1_layer_norm, x)) * 0.5 + x
-        h = layer_norm(self.self_attn_layer_norm, x)
-        x = self.self_attn(h, attn_bias, pad_mask, impl) + x
-        x = self.conv_module(x, pad_mask) + x
-        x = self.ffn2(layer_norm(self.ffn2_layer_norm, x)) * 0.5 + x
-        return layer_norm(self.final_layer_norm, x)
+        """ffn1 * 0.5 + x, self-attention + x, conv + x, ffn2 * 0.5 + x,
+        then the final LayerNorm: each residual add fused with the
+        LayerNorm after it (x is the residual stream, h the next block's
+        input), in the kernel where :func:`fused` says x allows it and in
+        the plain composition everywhere else."""
+        norm = add_layer_norm if fused(x, self) else add_layer_norm_plain
+        _, h = norm(self.ffn1_layer_norm, x)
+        x, h = norm(self.self_attn_layer_norm, x, self.ffn1(h), 0.5)
+        x, h = norm(self.conv_module.layer_norm, x,
+                    self.self_attn(h, attn_bias, pad_mask, impl),
+                    mask=pad_mask)
+        x, h = norm(self.ffn2_layer_norm, x, self.conv_module(h, norm))
+        return norm(self.final_layer_norm, x, self.ffn2(h), 0.5,
+                    residual=False)[1]
 
 
 class FeatureProjection(nn.Module):
@@ -389,7 +401,9 @@ class ConformerEncoder(nn.Module):
 
         A CUDA input with autograd off, no parallel groups and no
         ``remat`` runs as a CUDA graph, in span ``encoder.graph`` (``mode``
-        capture, replay or eager). The first call of a key
+        capture, replay or eager; ``ln_launches`` the fused LayerNorm's
+        launches in this forward, a replay's being its capture's). The
+        first call of a key
         (:meth:`graph_key`) runs eagerly and returns that result, then
         captures the key on a side stream; a later call copies its inputs
         into the graph's, replays it on the current stream and returns a
@@ -404,10 +418,11 @@ class ConformerEncoder(nn.Module):
             return self._encode(input_features, attention_mask, dtype, impl,
                                 remat)
         with profiler.span("encoder.graph", rows=B, frames=L) as sp:
-            logits, mode = self._graph_forward(input_features,
-                                               attention_mask, dtype, impl)
+            logits, mode, launched = self._graph_forward(
+                input_features, attention_mask, dtype, impl)
             if sp is not None:
                 sp.attrs["mode"] = mode
+                sp.attrs["ln_launches"] = launched.get(add_layer_norm, 0)
         return logits
 
     def graphable(self, x: torch.Tensor, remat: bool = False) -> bool:
@@ -425,20 +440,21 @@ class ConformerEncoder(nn.Module):
                 mask.dtype, dtype, impl, cuda_graphs.storage_key(self))
 
     def _graph_forward(self, x, mask, dtype, impl):
+        """(logits, mode, the kernel-wrapper launches of this forward)."""
         key = self.graph_key(x, mask, dtype, impl)
         dg = self._graphs.on(x.device, key[-1])
         g = dg.entries.get(key, False)
-        if g is None:
-            return self._encode(x, mask, dtype, impl), "eager"
+        if g:
+            return dg.replay(g, x, mask), "replay", g.launches
+        # The eager run first fills the lazy state (kernel attributes,
+        # library handles, cached indexes) that a capture cannot make.
+        logits, launched = _cuda_call.counted(self._encode, x, mask, dtype,
+                                              impl)
         if g is False:
-            # The eager run first fills the lazy state (kernel attributes,
-            # library handles, cached indexes) that a capture cannot make.
-            logits = self._encode(x, mask, dtype, impl)
             g = dg.capture(dg.entries, key,
                            lambda f, m: self._encode(f, m, dtype, impl),
                            f"the encoder at {tuple(x.shape)}", like=(x, mask))
-            return logits, "capture" if g else "eager"
-        return dg.replay(g, x, mask), "replay"
+        return logits, "capture" if g else "eager", launched
 
     def _encode(self, input_features: torch.Tensor,
                 attention_mask: torch.Tensor, dtype: torch.dtype, impl: str,
@@ -465,7 +481,8 @@ class ConformerEncoder(nn.Module):
         if sp is not None:
             Ll = (L + pad) // n
             s = group_rank(sp) * Ll
-            x, pad_mask = x[:, s:s + Ll], pad_mask[:, s:s + Ll]
+            # the fused LayerNorm reads the mask as one value per row
+            x, pad_mask = x[:, s:s + Ll], pad_mask[:, s:s + Ll].contiguous()
         fp = self.feature_projection
         x = dense(fp.projection, layer_norm(fp.layer_norm, x.to(dtype)))
         # Zero padded positions once at encoder entry (HF semantics).

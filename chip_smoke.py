@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N] [--only s2t]
+    python3 chip_smoke.py [--seed N] [--only s2t|ln]
 
 Phases, each of which fails the run (non-zero exit) on any error:
 
@@ -40,9 +40,24 @@ Phases, each of which fails the run (non-zero exit) on any error:
    ``Wav2Vec2Bert.forward`` captures on its first call and replays on
    the next two, whose logits must equal the eager body's bit for bit
    (the first replay's still equal after the second), and the kernel's
-   launch counter must advance by 24 on every call; prints, at 48 x 1280
+   launch counter must advance by 24 on every call and the fused
+   LayerNorm's by 144 (6 per layer), which each ``encoder.graph`` span's
+   ``ln_launches`` also reads; prints, at 48 x 1280
    under flash_rel, the host ms a call takes to return and the card ms
    per call, eager and replayed;
+3e. the fused add-and-LayerNorm kernel (``csrc/add_layer_norm.cu``)
+   against its plain version: at [61440, 1024] bf16 (48 x 1280 rows) in
+   every form the conformer runs (no branch; a branch at alpha 0.5 with r
+   written and not; alpha 1 with the mask; SiLU, on rows and on the
+   depthwise convolution's [B, C, L] output read as it lies, which must
+   give the rows' y bit for bit), at 24 x 97 and 24 x 104 rows and at
+   widths 4096 and 72: r bit for bit, y within one bf16 step (of 2^-6
+   below 2^-6, where the fp32 statistics' own rounding is larger), the mask
+   and SiLU outputs equal to those ops on the kernel's own y; then each
+   form's graph-timed ms at [61440, 1024] beside its byte bound, the plain
+   version's ms and the library's (``F.layer_norm`` on bf16 rows, after
+   ``torch.add`` where there is a branch) (``--only ln`` runs phases 1,
+   2, 3e and 3d alone);
 4. small reference: a tiny model through the port's ASR engine on the
    card (kernel path) and on the CPU (plain path), same weights and
    audio: masks equal, ids equal off near-ties, features close;
@@ -76,7 +91,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
    ``audio_processor_tpu_torch.pipeline.engine.DataProcessor`` at the
    full w2v-bert-2.0 width (random weights from the seed), bf16, CSV
    output; every file must succeed, every chunk must have its row, and
-   the kernel must have run once per encoder layer per dispatched batch;
+   the kernel must have run once per encoder layer per dispatched batch
+   and the fused LayerNorm six times (144 per batch), both counted from 0
+   just before the run; the same 144 per batch hold in phases 7, 8 and 9;
 5b. the batch path under ``attention_impl: flash``: 4 calls of 100 s
    (1 at 8 kHz), the same checks with the flash kernel, and no
    flash_rel launch;
@@ -237,7 +254,7 @@ import torch.nn.functional as F
 
 REPO = Path(__file__).resolve().parent
 SOURCES = ("flash_rel_attention", "flash_attention", "flash_rel_parts",
-           "decode_attention")
+           "decode_attention", "add_layer_norm")
 # Kernel vs plain: fp32 holds the JAX tests' tolerance (only summation
 # order differs); bf16 outputs may differ by one bf16 rounding (2^-8 to
 # 2^-7 relative) since both sides compute in fp32 and round at the end.
@@ -700,10 +717,13 @@ def graph_vs_eager(seed: int) -> dict:
     int8 (see the module docstring); the host and card ms per call at
     48 x 1280 under flash_rel, eager and replayed."""
     from audio_processor_tpu_torch.models import wav2vec2bert as w2v
+    from audio_processor_tpu_torch.models.layer_norm import add_layer_norm
+    from audio_processor_tpu_torch.obs import profiler
 
     dev = torch.device(DEVICE)
     base = w2v.build_synthetic(w2v.W2VBertConfig(vocab_size=78), dev,
                                seed=seed)
+    per_call = 6 * base.cfg.num_hidden_layers
     arms = [("flash_rel", base, "flash_rel_attention"),
             ("flash", base, "flash_attention"),
             ("int8", w2v.quantize_model(base), "flash_rel_attention")]
@@ -718,24 +738,32 @@ def graph_vs_eager(seed: int) -> dict:
             valid = torch.randint(frames // 2, frames + 1, (rows,),
                                   device=dev, generator=gen)
             mask = torch.arange(frames, device=dev)[None, :] < valid[:, None]
-            with torch.inference_mode():
+            with torch.inference_mode(), profiler.recording_spans():
                 want = [model._encode(x, mask, torch.bfloat16, impl)
                         for x in xs]
-                got, launched = [], []
+                got, launched, ln = [], [], []
+                seen = {sp.id for sp in profiler.spans()}
                 for x in (xs[0], xs[0], xs[1]):  # capture, two replays
-                    before = counters[kernel].launches
+                    before = (counters[kernel].launches,
+                              add_layer_norm.launches)
                     got.append(model(x, mask, dtype=torch.bfloat16,
                                      attention_impl=impl))
-                    launched.append(counters[kernel].launches - before)
+                    launched.append(counters[kernel].launches - before[0])
+                    ln.append(add_layer_norm.launches - before[1])
+                spans = [sp.attrs["ln_launches"] for sp in profiler.spans()
+                         if sp.id not in seen and sp.name == "encoder.graph"]
             same = [torch.equal(g, w) for g, w in
                     zip(got, (want[0], want[0], want[1]))]
-            if not all(same) or launched != [24, 24, 24]:
+            if not all(same) or launched != [24, 24, 24] \
+                    or ln != [per_call] * 3 or spans != ln:
                 raise AssertionError(
                     f"[3d graphs] {arm} {rows}x{frames}: replay equal to "
-                    f"eager {same}, launches {launched}")
+                    f"eager {same}, launches {launched}, fused LayerNorm "
+                    f"launches {ln}, spans' ln_launches {spans}")
         log(f"[3d graphs] {arm}: capture + 2 replays at "
             f"{len(MESSAGE_SHAPES)} shapes equal eager bit for bit; "
-            f"{kernel} launches 24 per call")
+            f"{kernel} launches 24 per call; add_layer_norm {per_call} per "
+            f"call, as each encoder.graph span's ln_launches reads")
         if arm == "flash_rel":
             x = torch.randn(48, 1280, 160, device=dev, generator=gen)
             mask = torch.ones(48, 1280, dtype=torch.bool, device=dev)
@@ -759,6 +787,131 @@ def graph_vs_eager(seed: int) -> dict:
     del arms, base, model
     torch.cuda.empty_cache()
     return times
+
+
+def _bf16_steps(y: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
+    """|y - want| in bf16 steps of ``want``, a step below 2^-6 counted as
+    2^-6's: near 0 the fp32 statistics' own rounding (~1e-6 at unit
+    scale) exceeds a bf16 step, whatever the order of the sums."""
+    mag = want.float().abs().clamp_min(2.0 ** -6)
+    step = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return (y.float() - want.float()).abs() / step
+
+
+def add_layer_norm_check(seed: int) -> dict:
+    """Phase 3e: the fused add-and-LayerNorm kernel against its plain
+    version, then graph-timed at the main path's rows (see the module
+    docstring). Returns the checks' worst steps and each form's times."""
+    from audio_processor_tpu_torch.models import layer_norm as lnm
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(seed + 37)
+
+    def norm(width):
+        ln = torch.nn.LayerNorm(width).to(dev)
+        with torch.no_grad():
+            ln.weight.copy_(1 + 0.3 * torch.randn(width, device=dev,
+                                                  generator=gen))
+            ln.bias.copy_(0.2 * torch.randn(width, device=dev,
+                                            generator=gen))
+        return ln
+
+    def rows(shape):
+        x = (2 * torch.randn(shape, device=dev, generator=gen) + 0.5) \
+            .bfloat16()
+        a = torch.randn(shape, device=dev, generator=gen).bfloat16()
+        mask = (torch.rand(shape[:-1], device=dev, generator=gen) > 0.2) \
+            .float()
+        return x, a, mask
+
+    # (name, branch?, alpha, epilogue, residual): the conformer's forms;
+    # "cols": x the transpose of a contiguous [B, C, L], as the depthwise
+    # convolution leaves it
+    forms = [("ln", False, 1.0, "none", True),
+             ("add_ln", True, 0.5, "none", True),
+             ("add_ln_mask", True, 1.0, "mask", True),
+             ("add_ln_final", True, 0.5, "none", False),
+             ("ln_silu", False, 1.0, "silu", True),
+             ("ln_silu_cols", False, 1.0, "silu", True)]
+
+    def laid(x, name):
+        return x.transpose(1, 2).contiguous().transpose(1, 2) \
+            if name.endswith("_cols") else x
+    worst = {}
+    with torch.inference_mode():
+        for shape in ((48, 1280, 1024), (24, 97, 1024), (24, 104, 1024),
+                      (24, 97, 4096), (24, 97, 72)):
+            ln = norm(shape[-1])
+            x, a, mask = rows(shape)
+            for name, has_branch, alpha, epi, residual in forms:
+                xi = laid(x, name)
+                branch = a if has_branch else None
+                m = mask if epi == "mask" else None
+                r, y = lnm.add_layer_norm(ln, xi, branch, alpha, mask=m,
+                                          silu=epi == "silu",
+                                          residual=residual)
+                pr, py = lnm.add_layer_norm_plain(
+                    ln, xi, branch, alpha, mask=m, silu=epi == "silu",
+                    residual=residual)
+                assert (torch.equal(r, pr) if residual else r is None), \
+                    (shape, name)
+                # the epilogue on the kernel's own y, and that y (the
+                # no-epilogue form) against the plain version's; columns
+                # give the rows' y bit for bit
+                _, y0 = lnm.add_layer_norm(ln, xi, branch, alpha)
+                _, py0 = lnm.add_layer_norm_plain(ln, xi, branch, alpha)
+                if xi is not x:
+                    assert torch.equal(y0, lnm.add_layer_norm(ln, x)[1]), \
+                        (shape, name)
+                if epi == "mask":
+                    assert torch.equal(y, y0 * m[..., None].bfloat16()), \
+                        (shape, name)
+                elif epi == "silu":
+                    assert torch.equal(y, F.silu(y0)), (shape, name)
+                pre, post = _bf16_steps(y0, py0), _bf16_steps(y, py)
+                key = f"{'x'.join(map(str, shape))}.{name}"
+                worst[key] = {"steps": float(pre.max()),
+                              "differ": int((pre > 0).sum()),
+                              "epilogue_steps": float(post.max()),
+                              "max_abs_err": float((y.float() - py.float())
+                                                   .abs().max())}
+                assert worst[key]["steps"] <= 1, (key, worst[key])
+            del x, a, mask
+    log(f"[3e layer norm] kernel = plain (r bit for bit; y's bf16 steps, "
+        f"elements that differ; the epilogue's steps): "
+        f"{json.dumps(worst)}")
+
+    ln = norm(1024)
+    x, a, mask = rows((48, 1280, 1024))
+    lw, lb = ln.weight.bfloat16(), ln.bias.bfloat16()
+    act = x.numel() * x.element_size()
+    timed = {}
+    with torch.inference_mode():
+        for name, has_branch, alpha, epi, residual in forms:
+            branch = a if has_branch else None
+            xi = laid(x, name)
+            kw = dict(mask=mask if epi == "mask" else None,
+                      silu=epi == "silu", residual=residual)
+            nbytes = act * (2 + has_branch + (has_branch and residual)) \
+                + (mask.numel() * 4 if epi == "mask" else 0)
+
+            def library(branch=branch, alpha=alpha, xi=xi):
+                r = xi if branch is None else torch.add(xi, branch,
+                                                        alpha=alpha)
+                return F.layer_norm(r, (1024,), lw, lb, ln.eps)
+
+            timed[name] = {
+                "ms": _graph_ms(lambda: lnm.add_layer_norm(
+                    ln, xi, branch, alpha, **kw), 50),
+                "plain_ms": _graph_ms(lambda: lnm.add_layer_norm_plain(
+                    ln, xi, branch, alpha, **kw), 10),
+                "library_ms": _graph_ms(library, 50),
+                "bound_ms": 1e3 * nbytes / HBM_BYTES_S, "bytes": nbytes}
+    log(f"[3e layer norm] ms per launch at 48 x 1280 x 1024 bf16 (bound: "
+        f"bytes / 3.35 TB/s): {json.dumps(timed)}")
+    del x, a, mask
+    torch.cuda.empty_cache()
+    return {"worst": worst, "timed": timed}
 
 
 def _fused_features(buf: np.ndarray, lengths: np.ndarray,
@@ -868,11 +1021,13 @@ def _counters() -> dict:
     from audio_processor_tpu_torch.models.flash_rel_attention import (
         flash_rel_attention,
     )
+    from audio_processor_tpu_torch.models.layer_norm import add_layer_norm
 
     return {"flash_rel_attention": flash_rel_attention,
             "flash_attention": flash_attention, "kb640": frp.kb640,
             "bare": frp.bare, "variant": frp.variant,
-            "decode_attention": decode_attention}
+            "decode_attention": decode_attention,
+            "add_layer_norm": add_layer_norm}
 
 
 def _reset_launches() -> None:
@@ -938,6 +1093,7 @@ def main_path(seed: int, impl: str, n_calls: int, n_8k: int) -> dict:
             rows = list(csv.DictReader(f))
 
     launches = counts[kernel]
+    ln = counts["add_layer_norm"]
     log(f"{tag} model: hidden {mcfg.hidden_size}, layers "
         f"{mcfg.num_hidden_layers}, heads {mcfg.num_attention_heads}, "
         f"ffn {mcfg.intermediate_size}, conv {mcfg.conv_depthwise_kernel_size}"
@@ -950,6 +1106,8 @@ def main_path(seed: int, impl: str, n_calls: int, n_8k: int) -> dict:
         f"included), encoder batch shapes {shapes}")
     log(f"{tag} {resolved} launches {launches} = 24 x {dispatches}"
         f": {launches == mcfg.num_hidden_layers * dispatches}; "
+        f"add_layer_norm launches {ln} = 144 x {dispatches}: "
+        f"{ln == 6 * mcfg.num_hidden_layers * dispatches}; "
         f"all launch counts {counts}")
     log(f"{tag} wall {wall_s:.2f} s for {audio_s:.0f} s of audio "
         f"(warmup included): RTFx {audio_s / wall_s:.1f}")
@@ -968,10 +1126,11 @@ def main_path(seed: int, impl: str, n_calls: int, n_8k: int) -> dict:
     assert set(shapes) <= set(checked), shapes
     assert launches > 0 and launches == mcfg.num_hidden_layers \
         * dispatches
-    assert all(n == 0 for name, n in counts.items() if name != kernel), \
-        counts
+    assert ln == 6 * mcfg.num_hidden_layers * dispatches, counts
+    assert all(n == 0 for name, n in counts.items()
+               if name not in (kernel, "add_layer_norm")), counts
     assert "jax" not in sys.modules
-    return {"launches": launches, "other": counts[other],
+    return {"launches": launches, "ln_launches": ln, "other": counts[other],
             "rows": spy and spy.rows,
             "rtfx": audio_s / wall_s}
 
@@ -987,7 +1146,7 @@ def ablation_path(seed: int) -> dict:
     per = tool.REPS * (tool.ROUNDS + 1)      # a warm-up loop, then ROUNDS
     expect = {"flash_rel_attention": per, "flash_attention": per,
               "kb640": per, "bare": 2 * per, "variant": 6 * per,
-              "decode_attention": 0}
+              "decode_attention": 0, "add_layer_norm": 0}
     log(f"[ablation] launches {counts} (expected {expect})")
     assert counts == expect, counts
     return {"launches": counts, "ms": ms}
@@ -1268,8 +1427,9 @@ def production_run(models: Path, root: Path, seed: int, n_calls: int,
                                                        len(rows))
     assert text.models_available
     assert launches > 0 and launches == layers * engine.dispatches, counts
+    assert counts["add_layer_norm"] == 6 * launches, counts
     assert all(n == 0 for k, n in counts.items()
-               if k != "flash_rel_attention"), counts
+               if k not in ("flash_rel_attention", "add_layer_norm")), counts
     _check_text_rows(rows, tag)
     return {"proc": proc, "engine": engine, "text": text, "rows": rows,
             "wall_s": wall_s, "audio_s": audio_s, "setup_s": setup_s,
@@ -1769,8 +1929,9 @@ def message_path(seed: int, work: Path, n_calls: int = 4,
         assert {m["speaker"] for m in rows} <= {"agent", "client"}, stem
     assert set(frames) <= set(MESSAGE_SHAPES), frames
     assert launches > 0 and launches == layers * sum(dispatches), counts
+    assert counts["add_layer_norm"] == 6 * launches, counts
     assert all(n == 0 for k, n in counts.items()
-               if k != "flash_rel_attention"), counts
+               if k not in ("flash_rel_attention", "add_layer_norm")), counts
     return {"launches": launches, "vad_ms": vad_ms, "mono_ms": mono_ms,
             "wall_s": wall_s, "segments": n_seg}
 
@@ -2176,8 +2337,9 @@ def serving_path(seed: int, models: Path, asr: dict = W2V_BERT_2,
         f"{durs[0]:g} s latency {res['idle_s']:.4f} s, device memory "
         f"{mem:.2f}%")
     assert launches > 0 and launches == layers * dispatches, counts
+    assert counts["add_layer_norm"] == 6 * launches, counts
     assert all(n == 0 for k, n in counts.items()
-               if k != "flash_rel_attention"), counts
+               if k not in ("flash_rel_attention", "add_layer_norm")), counts
     res["launches"] = launches
     return res
 
@@ -3635,7 +3797,7 @@ def s2t_phase(seed: int) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=("s2t",),
+    ap.add_argument("--only", choices=("s2t", "ln"),
                     help="run the card check, the build and this phase "
                          "alone")
     ap.add_argument("--rank-worker", help=argparse.SUPPRESS)
@@ -3649,8 +3811,12 @@ def main() -> int:
     logging.basicConfig(level=logging.WARNING, stream=sys.stderr)
     name = card()
     build()
-    if args.only == "s2t":
-        s2t_phase(args.seed)
+    if args.only:
+        if args.only == "s2t":
+            s2t_phase(args.seed)
+        else:
+            add_layer_norm_check(args.seed)
+            graph_vs_eager(args.seed)
         log(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": name,
             "count": torch.cuda.device_count()}}))
@@ -3659,6 +3825,7 @@ def main() -> int:
     flash = flash_vs_plain(args.seed)
     parts = parts_vs_plain(args.seed)
     graph_vs_eager(args.seed)
+    fused_ln = add_layer_norm_check(args.seed)
     small_reference(args.seed, "auto")
     small_reference(args.seed, "flash")
     message_reference(args.seed, "auto", profile=True)
@@ -3761,6 +3928,20 @@ def main() -> int:
              "ms": t["us"] / 1e3, "plain_ms": t["plain_us"] / 1e3,
              "bound": (t["bound_us"] / 1e3, "bytes"),
              "library_ms": t["library_us"] / 1e3}))
+    # the fused LayerNorm's launches on the batch path (phases 5 and 5b),
+    # each counted from 0 just before its run
+    ln_paths = {"batch": rel["ln_launches"],
+                "batch_flash": flash["ln_launches"]}
+    t = fused_ln["timed"]["add_ln"]
+    kernels.append(row(
+        "add_layer_norm (add_ln)", "add_layer_norm.cu",
+        "none: the JAX package's layer_norm is plain XLA",
+        sum(ln_paths.values()),
+        {"max_abs_err": max(w["max_abs_err"]
+                            for w in fused_ln["worst"].values()),
+         "ms": t["ms"], "plain_ms": t["plain_ms"],
+         "bound": (t["bound_ms"], "bytes"),
+         "library_ms": t["library_ms"]}, ln_paths))
     assert all(k["launches"] > 0 for k in kernels), kernels
     log(smi_line())            # again here, beside the numbers it qualifies
     log(json.dumps({"kernels": kernels}))
