@@ -280,7 +280,8 @@ def main(argv=None) -> int:
     from audio_processor_tpu_torch.host.topics import TopicClassifier
 
     processor = DataProcessor(cfg, db_manager=db_manager,
-                              topic_classifier=TopicClassifier(cfg),
+                              topic_classifier=TopicClassifier(
+                                  cfg, device=device),
                               monitor=monitor, device=device)
     if monitor is not None:
         monitor.add_callback("queues", processor.get_queue_metrics)

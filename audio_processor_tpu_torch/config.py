@@ -171,6 +171,12 @@ class PipelineConfig:
     max_tokens_summary: int = 300
     max_tokens_class: int = 3
     temperature: float = 0.0
+    # Topics on the card (host/topics.py) are read from `extras`, so the
+    # fields stay the JAX package's: `topic_backend` "bedrock" (above, the
+    # default) or "local", a decoder-only MoE LM (models/moe_lm.py) whose
+    # widths are `topic_model`'s config.json keys (empty:
+    # Moonlight-16B-A3B's), with the seed of its stand-in piece table,
+    # `topic_vocab_seed` (0), until its files are in the repository.
 
     # Glossaries / dictionaries (config.yaml:120-125)
     business_type: str = "B2C"

@@ -1,6 +1,7 @@
 """CUDA graphs of a model's work on the card: the encoder's forward per
-input shape (``models/wav2vec2bert.py``) and the text decoder's step per
-decode key (``models/seamless_s2t.py``).
+input shape (``models/wav2vec2bert.py``), the text decoder's step per
+decode key (``models/seamless_s2t.py``) and the topic LM's decode step per
+(rows, cache capacity) key (``models/moe_lm.py``).
 
 A model owns one :class:`GraphCache`; :meth:`GraphCache.on` gives its
 :class:`DeviceGraphs` on a device, all over one set of parameter storage

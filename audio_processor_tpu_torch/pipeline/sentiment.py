@@ -418,7 +418,7 @@ class SentimentAnalyzer:
         except Exception as e:
             logger.error("Error in batch sentiment analysis: %s", e)
             return self._fallback_individual_processing(chunks)
-        self._persist(chunks)
+        self._persist(chunks, self._batch_topics(chunks))
         return chunks
 
     def _analyze_batch(self, chunks: List[Dict]) -> List[Dict]:
@@ -499,14 +499,56 @@ class SentimentAnalyzer:
         return chunks
 
     # ------------------------------------------------------------------
-    def _persist(self, chunks: List[Dict]) -> None:
+    @staticmethod
+    def _per_call(chunks: List[Dict]) -> Dict[str, List[Dict]]:
+        per_call: Dict[str, List[Dict]] = {}
+        for chunk in chunks:
+            filename = chunk.get("file_name", "")
+            if not filename:
+                continue
+            call_id = call_id_from_chunk_filename(
+                filename, chunk.get("chunk_idx", chunk.get("chunk_index")))
+            per_call.setdefault(call_id, []).append(chunk)
+        return per_call
+
+    def _business_type(self, call_id: str) -> str:
+        try:
+            return self.db_manager.get_business_type(call_id) or "B2C"
+        except Exception:
+            return "B2C"
+
+    def _batch_topics(self, chunks: List[Dict]) -> Optional[Dict[str, str]]:
+        """One topic pass over every call of the batch, before persistence
+        and outside its spans, when the classifier answers a batch at once
+        (the local backend): call id -> ``"category - type"``, or ``""``
+        for every call when the pass fails. None otherwise: the aggregates
+        then ask call by call."""
+        tc = self.topic_classifier
+        if not self.db_manager or tc is None \
+                or not getattr(tc, "enabled", False) \
+                or not getattr(tc, "batched", False):
+            return None
+        per_call = self._per_call(chunks)
+        ids = list(per_call)
+        try:
+            answers = tc.infer_batch(
+                ["".join(it.get("transcription_chunk", "")
+                         for it in per_call[c]) for c in ids],
+                [self._business_type(c) for c in ids])
+        except Exception as e:
+            logger.error("Topic inference failed: %s", e)
+            return {c: "" for c in ids}
+        return {c: f"{cat} - {typ}" for c, (_, cat, typ) in zip(ids, answers)}
+
+    def _persist(self, chunks: List[Dict],
+                 topics: Optional[Dict[str, str]] = None) -> None:
         if not self.db_manager:
             return
         with profiler.span("engine.persist", what="chunks"):
             self._save_chunks_to_database(chunks)
         try:
             with profiler.span("engine.persist", what="aggregates"):
-                self._update_calls_aggregated_emotions(chunks)
+                self._update_calls_aggregated_emotions(chunks, topics)
         except Exception as e:
             logger.error("Failed to update call-level emotions: %s", e)
 
@@ -550,29 +592,23 @@ class SentimentAnalyzer:
             except Exception as e:
                 logger.error("Failed to insert chunk for %s: %s", call_id, e)
 
-    def _update_calls_aggregated_emotions(self, chunks: List[Dict]):
-        per_call: Dict[str, List[Dict]] = {}
-        for chunk in chunks:
-            filename = chunk.get("file_name", "")
-            if not filename:
-                continue
-            call_id = call_id_from_chunk_filename(
-                filename, chunk.get("chunk_idx", chunk.get("chunk_index")))
-            per_call.setdefault(call_id, []).append(chunk)
-        for call_id, items in per_call.items():
+    def _update_calls_aggregated_emotions(
+            self, chunks: List[Dict],
+            batch_topics: Optional[Dict[str, str]] = None):
+        """Call-level emotions and topics; ``batch_topics`` (call id ->
+        topics) holds what a batched topic pass already gave."""
+        for call_id, items in self._per_call(chunks).items():
             client_emotion = aggregate_client_sentiment(
                 [str(it.get("client_fusion_sentiment", "") or "")
                  for it in items])
             agent_ton = aggregate_agent_sentiment(
                 [str(it.get("agent_fusion_sentiment", "") or "")
                  for it in items])
-            business_type = None
-            try:
-                business_type = self.db_manager.get_business_type(call_id)
-            except Exception:
-                pass
-            topics = self.sentiment_appel_topics(items, business_type
-                                                 or "B2C")
+            if batch_topics is not None and call_id in batch_topics:
+                topics = batch_topics[call_id]
+            else:
+                topics = self.sentiment_appel_topics(
+                    items, self._business_type(call_id))
             if client_emotion or agent_ton:
                 try:
                     self.db_manager.update_call_sentiment(

@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N] [--only s2t|ln]
+    python3 chip_smoke.py [--seed N] [--only s2t|ln|topics]
 
 Phases, each of which fails the run (non-zero exit) on any error:
 
@@ -220,7 +220,16 @@ Phases, each of which fails the run (non-zero exit) on any error:
    equal to the spans' sum), the kernels one replayed step runs (a
    ``torch.profiler`` window around one replay); host and card ms per
    step, eager and replayed (``--only s2t`` runs phases 1, 2 and 13
-   alone).
+   alone);
+14. the topic LM (``models/moe_lm.py``) at Moonlight-16B-A3B's published
+   widths (15.96 B parameters, bf16) as the local topic backend: one
+   analysis batch of the topics cell's 8 calls through
+   ``TopicClassifier.infer_batch`` twice (the decode step graphs captured,
+   then only replayed), each prompt's first token and two decode steps
+   against the plain fp32 reference read one layer at a time (logit
+   error, expert ties and mismatches), the kernels one replayed step
+   launches, ms per step, per batch, and the peak memory (``--only topics``
+   runs phases 1, 2 and 14 alone).
 
 Kernel launch counts are set to 0 just before each of the paths 5, 5b,
 6, 7, 7c, 8, 10, 11a (in each process) and 11e, before phase 13's
@@ -246,6 +255,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -3794,10 +3804,172 @@ def s2t_phase(seed: int) -> dict:
     return out
 
 
+def topics_phase(seed: int) -> dict:
+    """Phase 14: the topic LM (``models/moe_lm.py``) at Moonlight-16B-A3B's
+    published widths (seeded stand-in weights, bf16, 15.96 B parameters)
+    as the local topic backend: one analysis batch of the topics cell (8
+    calls of the cell's transcripts, its 48-topic glossary, 200 summary and
+    3 class tokens) through ``TopicClassifier.infer_batch`` twice (the
+    step graphs captured, then replayed), every call answered by both
+    passes (no stand-in such as ``FAILED``, both prompts tapped); the first
+    token and two decode steps of each prompt against the plain fp32
+    reference (``benchmark_torch/reference/moonlight.py``, the program's
+    bf16 parameters read one layer at a time), with the expert choices and
+    their ties; the replays per loop and the kernels one replayed step
+    launches (a ``torch.profiler`` window around one replay); ms per
+    prefill, per step and per batch, and the peak device memory."""
+    from benchmark_torch.harness import batch_topics as bt
+    from benchmark_torch.reference import moonlight as ref_lm
+    from audio_processor_tpu_torch.config import PipelineConfig
+    from audio_processor_tpu_torch.host import topics
+    from audio_processor_tpu_torch.host.topics import TopicClassifier
+    from audio_processor_tpu_torch.models import moe_lm
+    from audio_processor_tpu_torch.obs import profiler
+
+    stand_ins = (topics.FAILED, topics.CONFIG_ERROR, topics.NOT_AVAILABLE)
+    dev = torch.device(DEVICE)
+    cell = json.loads(Path("benchmark_torch/configs/"
+                           "moonlight-16b-a3b.topics.json").read_text())
+    torch.cuda.reset_peak_memory_stats(dev)
+    out: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        gloss = Path(tmp) / "glossaire.xlsx"
+        bt.write_xlsx(gloss, "explication",
+                      bt.glossary_rows(cell["analyzers"]))
+        cfg = PipelineConfig.from_dict(dict(
+            cell["pipeline"], topics_glossary_b2c=str(gloss)))
+        t0 = time.perf_counter()
+        tc = TopicClassifier(cfg, device=dev)
+        torch.cuda.synchronize()
+        model = tc.local.model
+        n = sum(p.numel() for p in model.parameters())
+        log(f"[14] topic LM at published widths: {n / 1e9:.3f} B "
+            f"parameters, {torch.cuda.memory_allocated(dev) / 1e9:.2f} GB "
+            f"on the card, drawn in {time.perf_counter() - t0:.1f} s")
+        assert tc.enabled and abs(n - 15.96e9) < 0.01e9
+        words = " ".join(cell["analyzers"]["phrases"]).split()
+        per = bt.chunk_words(types.SimpleNamespace(config=cell), 8)
+        texts = []
+        for c in range(8):
+            parts = []
+            for k in range(8):
+                share = 1.0 if k < 7 else 12.0 / 25.0
+                start = (c * 13 + k * 5) % len(words)
+                parts.append(" ".join(
+                    words[(start + i) % len(words)]
+                    for i in range(int(round(per[c, k] * share)))))
+            texts.append("".join(parts))
+        tap_steps = {"summary": [1, 199], "class": [1, 2]}
+        model.tap = lambda kind, rows, steps: tap_steps[kind]
+        runs = []
+        for i in range(2):
+            with profiler.recording_spans():
+                seen = {s.id for s in profiler.spans()}
+                model.tapped = {}
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                answers = tc.infer_batch(texts, ["B2C"] * 8)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                got = [s for s in profiler.spans() if s.id not in seen]
+            assert len(answers) == 8 and all(
+                a[1] and a not in stand_ins for a in answers), answers
+            assert set(model.tapped) == {"summary", "class"}, model.tapped
+            runs.append((wall, got, dict(model.tapped)))
+            span = {k: [s for s in got if s.name == k] for k in (
+                "topics.prefill", "topics.decode", "topics.graph")}
+            log(f"[14] infer_batch {i}: {wall:.3f} s; "
+                + "; ".join(f"{s.attrs['kind']} prefill {s.attrs['rows']} "
+                            f"rows {s.attrs['tokens']} tokens "
+                            f"{(s.t1 - s.t0) / 1e6:.1f} ms"
+                            for s in span["topics.prefill"]) + "; "
+                + "; ".join(f"{s.attrs['kind']} decode {s.attrs['steps']} "
+                            f"steps {(s.t1 - s.t0) / 1e6:.1f} ms, experts "
+                            f"touched {s.attrs['experts_touched']}"
+                            for s in span["topics.decode"]) + "; graph "
+                + ", ".join(f"{s.attrs['mode']} @{s.attrs['capacity']}"
+                            for s in span["topics.graph"]))
+            want = "replay" if i else None
+            if want:
+                assert all(s.attrs["mode"] == "replay"
+                           for s in span["topics.graph"]), span
+        model.tap = None
+        wall, got, tapped = runs[1]
+        out["batch_s"] = wall
+        out["answers"] = [list(a) for a in answers]
+        # one replayed step under the profiler
+        st = next(iter(model._graphs.on(
+            model.embed_tokens.weight.device,
+            moe_lm.cuda_graphs.storage_key(model)).entries.values()))
+        cap = max(st.graphs)
+        g = st.graphs[cap]
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            st.dg.replay(g)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        card_us = sum(e.device_time for e in kernels)
+        starts = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        starts[0].record()
+        for _ in range(20):
+            st.dg.replay(g)
+        starts[1].record()
+        torch.cuda.synchronize()
+        step_ms = starts[0].elapsed_time(starts[1]) / 20
+        log(f"[14] one replayed step at capacity {cap}: {len(kernels)} "
+            f"kernels, {card_us / 1e3:.3f} card ms in the profiler, "
+            f"{step_ms:.3f} ms per replay back to back")
+        out.update(step_ms=step_ms, kernels_per_step=len(kernels))
+        # the reference, one layer at a time over the program's parameters
+        seqs, at, hints, prog = [], [], [], []
+        for kind, t in tapped.items():
+            steps = sorted(t["steps"])
+            last = max(steps)
+            start = 0
+            for r, p in enumerate(t["prompts"][:2]):
+                L = len(p)
+                seqs.append(list(p) + t["ids"][r, :last].tolist())
+                at.append([L - 1] + [L - 1 + s for s in steps])
+                pre = t["prefill_routes"][:, start:start + L]
+                dec = t["decode_routes"][:last, :, r].transpose(0, 1)
+                hints.append({layer: torch.cat([pre[j], dec[j]]).long()
+                              for j, layer in enumerate(
+                                  model.cfg.moe_layers)})
+                prog.append(torch.stack([t["first_logits"][r]] + [
+                    t["steps"][s][r] for s in steps]))
+                start += L
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            r = ref_lm.forward(ref_lm.layer_params(model.state_dict(), dev),
+                               vars(model.cfg), seqs, at, hints,
+                               bt.ROUTE_TIE_TOL, device=dev)
+        err = sum(float((p.double() - q.double().cpu()).pow(2).sum())
+                  for p, q in zip(prog, r["logits"]))
+        ref_sq = sum(float(q.double().pow(2).sum()) for q in r["logits"])
+        out.update(logit_rel_mse=err / ref_sq, route_ties=r["route_ties"],
+                   route_mismatch=r["route_mismatch"],
+                   peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+        log(f"[14] reference over {len(seqs)} sequences "
+            f"({sum(map(len, seqs))} tokens) in "
+            f"{time.perf_counter() - t0:.1f} s: logit_rel_mse "
+            f"{out['logit_rel_mse']:.3e}, route ties {r['route_ties']}, "
+            f"mismatches {r['route_mismatch']}; peak "
+            f"{out['peak_gb']:.2f} GB; {smi_line()}")
+        assert out["logit_rel_mse"] < 1e-3 and not r["route_mismatch"]
+    del tc, model, st, g
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=("s2t", "ln"),
+    ap.add_argument("--only", choices=("s2t", "ln", "topics"),
                     help="run the card check, the build and this phase "
                          "alone")
     ap.add_argument("--rank-worker", help=argparse.SUPPRESS)
@@ -3814,6 +3986,8 @@ def main() -> int:
     if args.only:
         if args.only == "s2t":
             s2t_phase(args.seed)
+        elif args.only == "topics":
+            topics_phase(args.seed)
         else:
             add_layer_norm_check(args.seed)
             graph_vs_eager(args.seed)
@@ -3864,6 +4038,7 @@ def main() -> int:
         device_resample(args.seed)
     acoustic_heads(args.seed)
     s2t = s2t_phase(args.seed)["decode_attention"]
+    topics_phase(args.seed)
     assert int8["launches"] > 0
     assert "jax" not in sys.modules
     assert not any(m.split(".")[0] == "audio_processor_tpu"
