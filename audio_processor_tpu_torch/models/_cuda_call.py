@@ -1,10 +1,11 @@
 """Calling a kernel of ``csrc/`` through its plain C interface.
 
-Every ``csrc/<name>.cu`` exports ``int <name>_fwd(..., void* stream)``,
-which returns the launch's cudaError_t (0: launched), and
-``const char* <name>_error(int)``. :func:`call` builds and loads the
-library on first use (``_build``), launches on the tensors' device and
-current stream, and raises on a non-zero code; :func:`check_tensors`
+Every ``csrc/<name>.cu`` exports ``int <name>_fwd(..., void* stream)``
+(or several such entries, ``<name>_<part>_fwd``), which returns the
+launch's cudaError_t (0: launched), and ``const char* <name>_error(int)``.
+:func:`call` builds and loads the library on first use (``_build``),
+launches on the tensors' device and current stream, and raises on a
+non-zero code; :func:`check_tensors`
 checks what every such interface assumes of the tensors it is handed;
 :func:`count_launch` counts a wrapper's launches, or, while the thread
 captures a CUDA graph, the capture's (:func:`tally_launches`), and
@@ -24,14 +25,15 @@ import torch
 from audio_processor_tpu_torch import _build
 
 # One letter per argument of ``<name>_fwd`` before the stream.
-_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float,
+           "l": ctypes.c_longlong}
 _local = threading.local()
 
 
 @functools.lru_cache(maxsize=None)
-def _entry(name: str, signature: str):
+def _entry(name: str, signature: str, entry: str):
     lib = _build.load(name)
-    fwd = getattr(lib, f"{name}_fwd")
+    fwd = getattr(lib, f"{entry}_fwd")
     fwd.argtypes = [_CTYPES[c] for c in signature] + [ctypes.c_void_p]
     fwd.restype = ctypes.c_int
     error = getattr(lib, f"{name}_error")
@@ -79,16 +81,18 @@ def check_operands(q: torch.Tensor, named) -> None:
 
 
 def call(name: str, signature: str, device: torch.device, *args,
-         label: str = "") -> None:
-    """Launch ``<name>_fwd(*args, stream)`` on ``device``'s current
-    stream; ``signature`` has one letter per arg (p pointer, i int, f
-    float). Raises RuntimeError, naming ``label`` (default ``name``), if
-    the launch returns an error."""
-    fwd, error = _entry(name, signature)
+         label: str = "", entry: str = "") -> None:
+    """Launch ``<entry>_fwd(*args, stream)`` of ``csrc/<name>.cu``
+    (``entry`` defaults to ``name``) on ``device``'s current stream;
+    ``signature`` has one letter per arg (p pointer, i int, l 64-bit int,
+    f float). Raises RuntimeError, naming ``label`` (default the entry),
+    if the launch returns an error."""
+    entry = entry or name
+    fwd, error = _entry(name, signature, entry)
     with torch.cuda.device(device):
         rc = fwd(*args, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"{label or name} launch failed: cudaError {rc} "
+        raise RuntimeError(f"{label or entry} launch failed: cudaError {rc} "
                            f"({error(rc).decode()})")
 
 

@@ -21,7 +21,9 @@ RMSNorm and an untied head give the logits.
   and layer. The prefill runs the expanded form (k_nope and v from c, one
   causal SDPA per row); a decode step runs the absorbed form: q̃ =
   q_nope·W_kvb,k[h], scores q̃·c + q_pe·k_pe over the row's cache, o_lat =
-  P·c, o_h = W_kvb,v[h]·o_lat.
+  P·c, o_h = W_kvb,v[h]·o_lat; on the card the RoPEs, the latent norm and
+  the cache write are one kernel and the attention over the latent cache
+  one more (``models/mla_decode.py``).
 - :class:`MoE`: scores s = sigmoid(W_g x̂) in fp32; the top
   ``num_experts_per_tok`` by s + b (b the correction bias, ``noaux_tc``;
   with ``n_group`` = ``topk_group`` = 1 the group limit keeps every
@@ -55,7 +57,8 @@ the tokens a row may emit, ``lengths``, ``tokens`` emitted,
 ``experts_touched``: the distinct experts each step's rows routed to,
 summed over the MoE layers and the steps, tallied on the device inside the
 step and read once at the loop's end) and ``topics.graph`` (``mode``
-capture / replay / eager, ``rows``, ``capacity``, ``steps``).
+capture / replay / eager, ``rows``, ``capacity``, ``steps``,
+``mla_launches``: the MLA attention kernel's launches in its steps).
 
 Precision: the weights live in the compute dtype (bf16 on the card), but
 the MoE correction bias stays fp32; the router, the RMSNorm statistics,
@@ -74,7 +77,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from audio_processor_tpu_torch.models import cuda_graphs
+from audio_processor_tpu_torch.models import (_cuda_call, cuda_graphs,
+                                              mla_decode)
 from audio_processor_tpu_torch.obs import profiler
 
 CACHE_ALIGN = 512     # the latent cache's capacity is a multiple of this
@@ -279,20 +283,27 @@ class LatentAttention(nn.Module):
         """One position of every row (absorbed form): x [R, H] at positions
         ``pos`` [R] (cos, sin [R, rope]); writes the rows' latents into
         ``cache`` [R, C, kv_lora + rope] at ``pos`` and attends over the
-        positions ``visible`` [R, C] marks. -> [R, H]."""
+        positions ``visible`` [R, C] marks. -> [R, H].
+
+        Between the projections it runs ``models/mla_decode.py``: the
+        kernels on the card (which take bf16 at Moonlight's widths and
+        raise on anything else), their plain versions on the CPU;
+        q_nope·W_kvb,k and o_lat·W_kvb,v are batched products over the
+        heads."""
         cfg = self.cfg
-        q_nope, q_pe, latent = self.project(x, cos, sin)
-        cache.scatter_(1, pos[:, None, None].expand(-1, 1, latent.shape[-1]),
-                       latent[:, None])
+        norm = self.kv_a_layernorm
+        q_nope, q_pe = mla_decode.mla_decode_prep(
+            F.linear(x, self.q_proj.weight),
+            F.linear(x, self.kv_a_proj_with_mqa.weight), cos, sin,
+            norm.weight, norm.eps, cache, pos, self.nh)
         w = self.kv_b_proj.weight.unflatten(0, (self.nh, -1))
         w_k, w_v = w.split([cfg.qk_nope_head_dim, cfg.v_head_dim], dim=1)
-        q_lat = torch.einsum("rhd,hdc->rhc", q_nope, w_k)
-        q = torch.cat([q_lat, q_pe], dim=-1)                  # [R, nh, 576]
-        scores = torch.bmm(q, cache.transpose(1, 2)).float() * self.scale
-        scores = scores.masked_fill(~visible[:, None], float("-inf"))
-        p = scores.softmax(dim=-1).to(x.dtype)
-        o_lat = torch.bmm(p, cache[..., :cfg.kv_lora_rank])   # [R, nh, 512]
-        o = torch.einsum("rhc,hdc->rhd", o_lat, w_v)
+        o_lat = mla_decode.mla_decode_attention(
+            torch.bmm(q_nope, w_k), q_pe, cache, visible,
+            self.scale)                                     # [nh, R, 512]
+        # W_kvb,v's product written straight in [R, nh, v]
+        o = x.new_empty(x.shape[0], self.nh, cfg.v_head_dim)
+        torch.bmm(o_lat, w_v.transpose(1, 2), out=o.transpose(0, 1))
         return F.linear(o.flatten(1), self.o_proj.weight)
 
 
@@ -612,17 +623,22 @@ class MoELM(nn.Module):
         """``steps`` steps by the step graph of (rows, ``cap``), in span
         ``topics.graph``: on the key's first use one eager step, the
         capture, then replays; later, replays only. A key whose capture
-        failed runs eagerly."""
+        failed runs eagerly. The span's ``mla_launches`` counts the MLA
+        attention kernel's launches in these steps, a replay's being its
+        capture's."""
         R = st.ids.shape[0]
+        attention = mla_decode.mla_decode_attention
         with profiler.span("topics.graph", rows=R, capacity=cap,
                            steps=steps) as sp:
             g = st.graphs.get(cap, False)       # False: not yet captured
-            mode = "replay" if g else "eager"
+            mode, launched = ("replay" if g else "eager"), 0
             for s in range(1, steps + 1):
                 if g:
                     st.dg.replay(g)
+                    launched += g.launches.get(attention, 0)
                 else:
-                    self._step(st, cap)
+                    _, n = _cuda_call.counted(self._step, st, cap)
+                    launched += n.get(attention, 0)
                     if g is False:
                         # the eager step made the lazy state (the rope
                         # tables) that a capture cannot make
@@ -635,6 +651,7 @@ class MoELM(nn.Module):
                     tapped[s] = st.logits.clone()
             if sp is not None:
                 sp.attrs["mode"] = mode
+                sp.attrs["mla_launches"] = launched
 
     # ---- generation --------------------------------------------------
     def generate(self, prompts: Sequence[Sequence[int]], max_new: int,

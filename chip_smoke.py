@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N] [--only s2t|ln|topics]
+    python3 chip_smoke.py [--seed N] [--only s2t|ln|topics|mla]
 
 Phases, each of which fails the run (non-zero exit) on any error:
 
@@ -228,12 +228,21 @@ Phases, each of which fails the run (non-zero exit) on any error:
    then only replayed), each prompt's first token and two decode steps
    against the plain fp32 reference read one layer at a time (logit
    error, expert ties and mismatches), the kernels one replayed step
-   launches, ms per step, per batch, and the peak memory (``--only topics``
-   runs phases 1, 2 and 14 alone).
+   launches, ms per step, per batch, and the peak memory; every
+   ``topics.graph`` span's ``mla_launches`` is 27 x its steps. Before it,
+   14b holds the topic LM's MLA decode kernels (``models/mla_decode.py``)
+   against their plain versions at the cell's shapes (8 rows, capacities
+   1,536 and 4,096, ragged positions, a mask with holes, a CUDA graph of
+   27 layers' decodes replayed equal to eager) and times them over 27
+   layers' caches beside their byte bounds, their plain versions, the
+   one SDPA call that computes the attention and the decode's composition
+   before the kernels (``--only topics`` runs phases 1, 2, 14b and 14
+   alone, ``--only mla`` phases 1, 2 and 14b).
 
 Kernel launch counts are set to 0 just before each of the paths 5, 5b,
 6, 7, 7c, 8, 10, 11a (in each process) and 11e, before phase 13's
-traced ``generate``, and after phase 9's warmup, and read just after;
+traced ``generate`` and phase 14's two batches, and after phase 9's
+warmup, and read just after;
 11b counts each replica's launches. The second-to-last line is the kernels' JSON record (per kernel: launches,
 error, ms, plain ms, the bound computed from the timed inputs and what
 sets it, and the library call's ms or null); the last line is ``{"ok": true, "device": {...}}``. Imports
@@ -264,7 +273,7 @@ import torch.nn.functional as F
 
 REPO = Path(__file__).resolve().parent
 SOURCES = ("flash_rel_attention", "flash_attention", "flash_rel_parts",
-           "decode_attention", "add_layer_norm")
+           "decode_attention", "add_layer_norm", "mla_decode")
 # Kernel vs plain: fp32 holds the JAX tests' tolerance (only summation
 # order differs); bf16 outputs may differ by one bf16 rounding (2^-8 to
 # 2^-7 relative) since both sides compute in fp32 and round at the end.
@@ -1032,12 +1041,18 @@ def _counters() -> dict:
         flash_rel_attention,
     )
     from audio_processor_tpu_torch.models.layer_norm import add_layer_norm
+    from audio_processor_tpu_torch.models.mla_decode import (
+        mla_decode_attention,
+        mla_decode_prep,
+    )
 
     return {"flash_rel_attention": flash_rel_attention,
             "flash_attention": flash_attention, "kb640": frp.kb640,
             "bare": frp.bare, "variant": frp.variant,
             "decode_attention": decode_attention,
-            "add_layer_norm": add_layer_norm}
+            "add_layer_norm": add_layer_norm,
+            "mla_decode_prep": mla_decode_prep,
+            "mla_decode_attention": mla_decode_attention}
 
 
 def _reset_launches() -> None:
@@ -1156,7 +1171,8 @@ def ablation_path(seed: int) -> dict:
     per = tool.REPS * (tool.ROUNDS + 1)      # a warm-up loop, then ROUNDS
     expect = {"flash_rel_attention": per, "flash_attention": per,
               "kb640": per, "bare": 2 * per, "variant": 6 * per,
-              "decode_attention": 0, "add_layer_norm": 0}
+              "decode_attention": 0, "add_layer_norm": 0,
+              "mla_decode_prep": 0, "mla_decode_attention": 0}
     log(f"[ablation] launches {counts} (expected {expect})")
     assert counts == expect, counts
     return {"launches": counts, "ms": ms}
@@ -3804,6 +3820,248 @@ def s2t_phase(seed: int) -> dict:
     return out
 
 
+def _mla_old_decode(attn, x, cos, sin, cache, pos, visible):
+    """``moe_lm.LatentAttention.decode`` before the MLA kernels, verbatim:
+    the absorbed composition that phase 14b times beside them, that its
+    fp32 run holds the decode to, and that the CPU tests hold the kernels'
+    plain versions to."""
+    cfg = attn.cfg
+    q_nope, q_pe, latent = attn.project(x, cos, sin)
+    cache.scatter_(1, pos[:, None, None].expand(-1, 1, latent.shape[-1]),
+                   latent[:, None])
+    w = attn.kv_b_proj.weight.unflatten(0, (attn.nh, -1))
+    w_k, w_v = w.split([cfg.qk_nope_head_dim, cfg.v_head_dim], dim=1)
+    q_lat = torch.einsum("rhd,hdc->rhc", q_nope, w_k)
+    q = torch.cat([q_lat, q_pe], dim=-1)
+    scores = torch.bmm(q, cache.transpose(1, 2)).float() * attn.scale
+    scores = scores.masked_fill(~visible[:, None], float("-inf"))
+    p = scores.softmax(dim=-1).to(x.dtype)
+    o_lat = torch.bmm(p, cache[..., :cfg.kv_lora_rank])
+    o = torch.einsum("rhc,hdc->rhd", o_lat, w_v)
+    return F.linear(o.flatten(1), attn.o_proj.weight)
+
+
+def _graph_kernels(fn) -> int:
+    """Kernels the card runs in one replay of ``fn`` captured as a CUDA
+    graph (a ``torch.profiler`` window around the replay)."""
+    from audio_processor_tpu_torch.models import _cuda_call
+
+    fn()
+    graph = torch.cuda.CUDAGraph()
+    with _cuda_call.tally_launches(), torch.cuda.graph(graph):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        graph.replay()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def _mla_library_us(q_lat, q_pe, caches, visible, scale: float):
+    """us per layer of ``F.scaled_dot_product_attention`` computing
+    :func:`mla_decode.mla_decode_attention` over each of ``caches``
+    [layers, R, C, 576] in a graph: the query [R, H, 1, 576], the key the
+    cache and the value its first 512 dims, both expanded over the heads
+    without a copy, the mask ``visible``. Held to the plain version within
+    1e-2 first; None, with the reason logged, where SDPA refuses it."""
+    from audio_processor_tpu_torch.models import mla_decode as md
+
+    lora = q_lat.shape[-1]
+    H = q_lat.shape[0]
+    q = torch.cat([q_lat.transpose(0, 1), q_pe], dim=-1)[:, :, None]
+    mask = visible[:, None, None]
+
+    def library(c):
+        return F.scaled_dot_product_attention(
+            q, c[:, None].expand(-1, H, -1, -1),
+            c[:, None, :, :lora].expand(-1, H, -1, -1), attn_mask=mask,
+            scale=scale)
+
+    try:
+        with torch.inference_mode():
+            got = library(caches[0])[:, :, 0].transpose(0, 1)
+            want = md.mla_decode_attention_plain(q_lat, q_pe, caches[0],
+                                                 visible, scale)
+            torch.testing.assert_close(got.float(), want.float(),
+                                       atol=1e-2, rtol=1e-2)
+            return 1e3 * _graph_ms(lambda: [library(c) for c in caches],
+                                   20) / caches.shape[0]
+    except RuntimeError as e:
+        log(f"[14b] SDPA does not take the absorbed attention: {e}")
+        return None
+
+
+def mla_decode_check(seed: int) -> dict:
+    """Phase 14b: the topic LM's MLA decode kernels
+    (``models/mla_decode.py``) at the topics cell's shapes: Moonlight's
+    attention widths (16 heads, latent 512 + 64) with drawn bf16 weights,
+    8 rows at ragged positions 1,270-1,470 of a 1,536 capacity and
+    3,890-4,000 of 4,096, each layer's cache the first positions of an
+    8,192-position buffer (as the decode state's). The prep against its
+    plain version (q_nope, q_pe bit for bit; the cached latent within a
+    bf16 step; nothing else of the cache written), the attention against
+    its plain version (within 1e-2) under the causal mask and one with
+    holes; the decode's relative error against the decode before the
+    kernels (``_mla_old_decode``) run in fp32 on the same values, beside
+    that composition's own in bf16; a CUDA graph of all 27 layers'
+    decodes replayed equal to the eager run. Then, over 27 layers' caches
+    (cold in L2, as in the step), us per launch of each kernel beside its
+    byte bound and its plain version, the attention also beside the one
+    library call that computes it (``F.scaled_dot_product_attention``
+    with head size 576 for the key and 512 for the value, both the cache
+    expanded over the heads), and us per layer of the whole decode (its
+    projections included) beside the composition before the kernels, with
+    the kernels each runs in a graph."""
+    from audio_processor_tpu_torch.models import mla_decode as md
+    from audio_processor_tpu_torch.models import moe_lm
+
+    dev = torch.device(DEVICE)
+    cfg = moe_lm.MoELMConfig()
+    layers, R, nh = cfg.num_hidden_layers, 8, cfg.num_attention_heads
+    torch.manual_seed(seed + 61)
+    attn = moe_lm.LatentAttention(cfg)
+    with torch.no_grad():
+        for name, p in attn.named_parameters():
+            if "layernorm" in name:
+                p.copy_(1 + 0.2 * torch.randn(p.shape))
+            else:
+                p.normal_(0.0, 0.04 if "kv_a" not in name else 0.02)
+    exact = attn.to(dev).eval()
+    attn = moe_lm.LatentAttention(cfg).to(dev)
+    attn.load_state_dict(exact.state_dict())
+    attn = attn.to(torch.bfloat16).eval().requires_grad_(False)
+    exact = exact.to(torch.bfloat16).float().requires_grad_(False)
+    gen = torch.Generator(device=dev).manual_seed(seed + 62)
+    buf = torch.randn(layers, R, cfg.max_position_embeddings,
+                      cfg.latent_dim, device=dev, generator=gen) \
+        .to(torch.bfloat16)
+    cos_t, sin_t = moe_lm.rope_tables(cfg, dev)
+    slots = torch.arange(cfg.max_position_embeddings, device=dev)
+    norm = attn.kv_a_layernorm
+    w = attn.kv_b_proj.weight.unflatten(0, (nh, -1))
+    w_k = w[:, :cfg.qk_nope_head_dim]
+    out: dict = {"err": {}, "timed": {}}
+    for cap, lo, hi in ((1536, 1270, 1470), (4096, 3890, 4000)):
+        pos = torch.randint(lo, hi, (R,), device=dev, generator=gen)
+        cos, sin = cos_t[pos], sin_t[pos]
+        visible = slots[None, :cap] <= pos[:, None]
+        holes = visible & (torch.rand(R, cap, device=dev, generator=gen)
+                           > 0.3)
+        holes[:, 0] = True
+        x = torch.randn(R, cfg.hidden_size, device=dev, generator=gen) \
+            .to(torch.bfloat16)
+        with torch.inference_mode():
+            q, kv = attn.q_proj(x), attn.kv_a_proj_with_mqa(x)
+            cache = buf[0, :, :cap]
+            plain_cache = cache.clone()
+            args = (q, kv, cos, sin, norm.weight, norm.eps)
+            got = md.mla_decode_prep(*args, cache, pos, nh)
+            want = md.mla_decode_prep_plain(*args, plain_cache, pos, nh)
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
+            rows = torch.arange(R, device=dev)
+            a, b = cache[rows, pos].float(), plain_cache[rows, pos].float()
+            steps = float(((a - b).abs() / (b.abs() * 2 ** -8 + 1e-6))
+                          .max())
+            assert steps <= 2.0, steps
+            out["err"][f"prep_latent.{cap}"] = float((a - b).abs().max())
+            cache[rows, pos] = plain_cache[rows, pos]
+            assert torch.equal(cache, plain_cache)
+            q_lat = torch.bmm(got[0], w_k)
+            for mname, mask in (("causal", visible), ("holes", holes)):
+                o = md.mla_decode_attention(q_lat, got[1], cache, mask,
+                                            attn.scale)
+                p = md.mla_decode_attention_plain(q_lat, got[1], cache,
+                                                  mask, attn.scale)
+                torch.testing.assert_close(o.float(), p.float(), atol=1e-2,
+                                           rtol=1e-2)
+                out["err"][f"attention.{cap}.{mname}"] = float(
+                    (o.float() - p.float()).abs().max())
+            out["err"][f"latent_bf16_steps.{cap}"] = steps
+            # the decode's error against the old composition in fp32 (the
+            # card decodes only in bf16), the old one's in bf16 beside it
+            ref = _mla_old_decode(exact, x.float(), cos, sin, cache.float(),
+                                  pos, visible)
+            new = attn.decode(x, cos, sin, cache, pos, visible)
+            old = _mla_old_decode(attn, x, cos, sin, cache.clone(), pos,
+                                  visible)
+            out["err"][f"decode_rel.{cap}"] = float(
+                (new.float() - ref).norm() / ref.norm())
+            out["err"][f"old_decode_rel.{cap}"] = float(
+                (old.float() - ref).norm() / ref.norm())
+            # all layers' decodes in one graph, replayed = eager
+            def all_layers(fn, x=x, cos=cos, sin=sin, pos=pos,
+                           visible=visible, cap=cap):
+                return [fn(attn, x, cos, sin, buf[i, :, :cap], pos, visible)
+                        for i in range(layers)]
+
+            def new_decode(a, *rest):
+                return a.decode(*rest)
+
+            eager = all_layers(new_decode)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                captured = all_layers(new_decode)
+            graph.replay()
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(eager, captured))
+        if cap != 1536:
+            continue
+        # times over the 27 layers' caches
+        rest = (x, cos, sin)
+        vis_bytes = int((pos + 1).sum()) * cfg.latent_dim * 2
+        e = 2
+        prep_bytes = e * R * (nh * cfg.qk_head_dim + 2 * cfg.latent_dim
+                              + nh * cfg.qk_head_dim) + 4 * 2 * R * 64 \
+            + e * cfg.kv_lora_rank
+        attn_bytes = vis_bytes + e * R * nh * (2 * cfg.kv_lora_rank + 64) \
+            + R * cap
+        cases = {
+            "prep": (lambda i: md.mla_decode_prep(
+                *args, buf[i, :, :cap], pos, nh), prep_bytes),
+            "attention": (lambda i: md.mla_decode_attention(
+                q_lat, got[1], buf[i, :, :cap], visible, attn.scale),
+                attn_bytes),
+            "decode": (lambda i: attn.decode(*rest, buf[i, :, :cap], pos,
+                                             visible), None),
+            "old_decode": (lambda i: _mla_old_decode(
+                attn, *rest, buf[i, :, :cap], pos, visible), None)}
+        with torch.inference_mode():
+            for name, (fn, nbytes) in cases.items():
+                def run(fn=fn):
+                    for i in range(layers):
+                        fn(i)
+
+                us = 1e3 * _graph_ms(run, 20) / layers
+                rec = {"us": us, "kernels_per_layer":
+                       _graph_kernels(run) / layers}
+                if nbytes is not None:
+                    rec.update(bound_us=1e6 * nbytes / 3.35e12,
+                               bytes=nbytes)
+                if name == "prep":
+                    rec["plain_us"] = 1e3 * _graph_ms(
+                        lambda: [md.mla_decode_prep_plain(
+                            *args, buf[i, :, :cap], pos, nh)
+                            for i in range(layers)], 5) / layers
+                if name == "attention":
+                    rec["plain_us"] = 1e3 * _graph_ms(
+                        lambda: [md.mla_decode_attention_plain(
+                            q_lat, got[1], buf[i, :, :cap], visible,
+                            attn.scale) for i in range(layers)], 5) / layers
+                    rec["library_us"] = _mla_library_us(
+                        q_lat, got[1], buf[:, :, :cap], visible, attn.scale)
+                out["timed"][name] = rec
+    log(f"[14b] MLA decode kernels = plain at {R} rows x {nh} heads, "
+        f"capacities 1,536 and 4,096: {json.dumps(out['err'])}")
+    log(f"[14b] us per launch / per layer over {layers} layers' caches "
+        f"(bound: bytes / 3.35 TB/s): {json.dumps(out['timed'])}; "
+        f"{smi_line()}")
+    del buf, attn, exact
+    torch.cuda.empty_cache()
+    return out
+
+
 def topics_phase(seed: int) -> dict:
     """Phase 14: the topic LM (``models/moe_lm.py``) at Moonlight-16B-A3B's
     published widths (seeded stand-in weights, bf16, 15.96 B parameters)
@@ -3862,6 +4120,7 @@ def topics_phase(seed: int) -> dict:
         tap_steps = {"summary": [1, 199], "class": [1, 2]}
         model.tap = lambda kind, rows, steps: tap_steps[kind]
         runs = []
+        _reset_launches()
         for i in range(2):
             with profiler.recording_spans():
                 seen = {s.id for s in profiler.spans()}
@@ -3893,6 +4152,18 @@ def topics_phase(seed: int) -> dict:
             if want:
                 assert all(s.attrs["mode"] == "replay"
                            for s in span["topics.graph"]), span
+            layers = model.cfg.num_hidden_layers
+            assert all(s.attrs["mla_launches"] == layers * s.attrs["steps"]
+                       for s in span["topics.graph"]), span
+            out["mla_launches"] = out.get("mla_launches", 0) + sum(
+                s.attrs["mla_launches"] for s in span["topics.graph"])
+        # both MLA kernels once a layer and step, as the spans count, and
+        # no other kernel of csrc/ (the prefill runs SDPA)
+        out["launches"] = _launches()
+        counts = dict(out["launches"])
+        assert counts.pop("mla_decode_prep") == counts.pop(
+            "mla_decode_attention") == out["mla_launches"] > 0, out
+        assert not any(counts.values()), counts
         model.tap = None
         wall, got, tapped = runs[1]
         out["batch_s"] = wall
@@ -3969,7 +4240,7 @@ def topics_phase(seed: int) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=("s2t", "ln", "topics"),
+    ap.add_argument("--only", choices=("s2t", "ln", "topics", "mla"),
                     help="run the card check, the build and this phase "
                          "alone")
     ap.add_argument("--rank-worker", help=argparse.SUPPRESS)
@@ -3987,7 +4258,10 @@ def main() -> int:
         if args.only == "s2t":
             s2t_phase(args.seed)
         elif args.only == "topics":
+            mla_decode_check(args.seed)
             topics_phase(args.seed)
+        elif args.only == "mla":
+            mla_decode_check(args.seed)
         else:
             add_layer_norm_check(args.seed)
             graph_vs_eager(args.seed)
@@ -4038,7 +4312,8 @@ def main() -> int:
         device_resample(args.seed)
     acoustic_heads(args.seed)
     s2t = s2t_phase(args.seed)["decode_attention"]
-    topics_phase(args.seed)
+    mla = mla_decode_check(args.seed)
+    lm = topics_phase(args.seed)
     assert int8["launches"] > 0
     assert "jax" not in sys.modules
     assert not any(m.split(".")[0] == "audio_processor_tpu"
@@ -4117,6 +4392,20 @@ def main() -> int:
          "ms": t["ms"], "plain_ms": t["plain_ms"],
          "bound": (t["bound_ms"], "bytes"),
          "library_ms": t["library_ms"]}, ln_paths))
+    # the MLA kernels' launches on the topic LM (phase 14), counted from 0
+    # just before its run
+    for part, err in (("prep", "prep_latent."), ("attention", "attention.")):
+        t = mla["timed"][part]
+        kernels.append(row(
+            f"mla_decode ({part})", "mla_decode.cu",
+            "none: the JAX package has no LM",
+            lm["launches"][f"mla_decode_{part}"],
+            {"max_abs_err": max(v for k, v in mla["err"].items()
+                                if k.startswith(err)),
+             "ms": t["us"] / 1e3, "plain_ms": t["plain_us"] / 1e3,
+             "bound": (t["bound_us"] / 1e3, "bytes"),
+             "library_ms": None if t.get("library_us") is None
+             else t["library_us"] / 1e3}))
     assert all(k["launches"] > 0 for k in kernels), kernels
     log(smi_line())            # again here, beside the numbers it qualifies
     log(json.dumps({"kernels": kernels}))

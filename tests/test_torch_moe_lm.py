@@ -24,6 +24,12 @@ TINY = moe_lm.MoELMConfig(
     qk_rope_head_dim=8, v_head_dim=16, n_routed_experts=8,
     n_shared_experts=2, num_experts_per_tok=3, max_position_embeddings=96,
     bos_token_id=600, eos_token_id=601)
+# Moonlight-16B-A3B's attention widths, which the card's decode kernels
+# take (models/mla_decode.py), in the tiny model
+WIDE_ATTENTION = dataclasses.replace(
+    TINY, num_attention_heads=16, num_key_value_heads=16, kv_lora_rank=512,
+    qk_nope_head_dim=128, qk_rope_head_dim=64, v_head_dim=128,
+    max_position_embeddings=512)
 SPECIAL = {600: "[BOS]", 601: "[EOS]", 603: "<|im_user|>",
            604: "<|im_assistant|>"}
 
@@ -331,11 +337,13 @@ def test_a_failing_local_lm_leaves_topics_empty(tmp_path, monkeypatch):
 @pytest.mark.cuda
 def test_step_graph_replay_equals_eager():
     """On the card: the decode loop replaying its step graph gives the
-    eager steps' tokens and logits bit for bit, one capture per key."""
+    eager steps' tokens and logits bit for bit, one capture per key (the
+    tiny model at the attention widths the card's decode kernels take)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     dev = torch.device("cuda")
-    m = moe_lm.build_synthetic(TINY, dev, seed=3, dtype=torch.bfloat16)
+    m = moe_lm.build_synthetic(WIDE_ATTENTION, dev, seed=3,
+                               dtype=torch.bfloat16).requires_grad_(False)
     prompts = _prompts([7, 20, 13], seed=8)
     with profiler.recording_spans():
         seen = {s.id for s in profiler.spans()}
