@@ -16,6 +16,8 @@
 //      values) under kv_a_layernorm's RMSNorm (fp32 statistics, x * rstd
 //      * gain in fp32, rounded once), then k_pe rotated as q_pe is. A pos
 //      outside [0, cap) writes nothing.
+//    With rotate = 0 (Kimi-Linear's mla_use_nope) q_pe and k_pe are copied
+//    as projected.
 // 2. mla_decode_attention (one cluster of 8 blocks per row) computes, per
 //    head h of the row, over the cached positions j that visible[r, j]
 //    marks:
@@ -25,6 +27,9 @@
 //
 //    and writes o_lat[h, r, 0:512] in bf16, head-major for the W_kvb,v
 //    product. A row with no visible position gets NaN, as softmax does.
+//    The heads go 16 to a cluster (the MMA's rows): Moonlight's 16 in one,
+//    Kimi-Linear's 32 in two (blockIdx.z), each cluster reading the row's
+//    cache for its own 16.
 //
 // Replaces no TPU kernel: the JAX package has no LM. It replaces, per
 // layer of each decode step's CUDA graph, the decode's op chain between
@@ -94,7 +99,7 @@ constexpr int kRope = 64;              // qk_rope_head_dim
 constexpr int kLora = 512;             // kv_lora_rank: c's width
 constexpr int kLat = kLora + kRope;    // 576 values a cached position
 constexpr int kQk = kNope + kRope;     // 192: a head's q in q_proj's output
-constexpr int kHeads = 16;             // the MMA's rows; at most 16 real
+constexpr int kHeads = 16;             // the MMA's rows: heads a cluster
 
 // ---- prep ------------------------------------------------------------
 
@@ -120,7 +125,7 @@ mla_prep_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
                 const float* __restrict__ cosv, const float* __restrict__ sinv,
                 const bf16* __restrict__ gain, float eps,
                 const long long* __restrict__ pos, bf16* cache,
-                long long row_stride, int cap, int R, int H,
+                long long row_stride, int cap, int R, int H, int rotate,
                 bf16* __restrict__ q_nope, bf16* __restrict__ q_pe) {
   __shared__ float warp_sq[kPrepThreads / 32];
   const int r = blockIdx.x;
@@ -136,11 +141,17 @@ mla_prep_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
                                            kNope + c * 8) =
         *reinterpret_cast<const uint4*>(qr + h * kQk + c * 8);
   }
-  // q_pe, rotated
+  // q_pe, rotated (or copied)
   for (int i = t; i < H * (kRope / 2); i += kPrepThreads) {
-    const int h = i / (kRope / 2);
-    rope_pair(qr + h * kQk + kNope, cs, sn, i % (kRope / 2),
-              q_pe + (static_cast<size_t>(r) * H + h) * kRope);
+    const int h = i / (kRope / 2), j = i % (kRope / 2);
+    bf16* o = q_pe + (static_cast<size_t>(r) * H + h) * kRope;
+    const bf16* x = qr + h * kQk + kNope;
+    if (rotate) {
+      rope_pair(x, cs, sn, j, o);
+    } else {
+      o[j] = x[j];
+      o[j + kRope / 2] = x[j + kRope / 2];
+    }
   }
 
   // the latent: RMSNorm of c (2 values a thread), then k_pe rotated
@@ -161,7 +172,14 @@ mla_prep_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
   const float rstd = rsqrtf(total / kLora + eps);
   dst[2 * t] = __float2bfloat16_rn(c0 * rstd * bf(gain[2 * t]));
   dst[2 * t + 1] = __float2bfloat16_rn(c1 * rstd * bf(gain[2 * t + 1]));
-  if (t < kRope / 2) rope_pair(kr + kLora, cs, sn, t, dst + kLora);
+  if (t < kRope / 2) {
+    if (rotate) {
+      rope_pair(kr + kLora, cs, sn, t, dst + kLora);
+    } else {
+      dst[kLora + t] = kr[kLora + t];
+      dst[kLora + t + kRope / 2] = kr[kLora + t + kRope / 2];
+    }
+  }
 }
 
 // ---- attention -------------------------------------------------------
@@ -259,6 +277,8 @@ mla_attention_kernel(const bf16* __restrict__ q_lat,
   cg::cluster_group cluster = cg::this_cluster();
   const int split = static_cast<int>(cluster.block_rank());
   const int r = blockIdx.y;
+  const int hg = blockIdx.z * kHeads;          // this cluster's first head
+  const int Hl = min(kHeads, H - hg);          // and its heads
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, tg = lane % 4;       // the MMA fragments' row, pair
   const bf16* crow = cache + static_cast<size_t>(r) * row_stride;
@@ -293,16 +313,17 @@ mla_attention_kernel(const bf16* __restrict__ q_lat,
     m_s[tid] = -INFINITY;
     l_s[tid] = 0.f;
   }
-  // the query tile: q_lat (head-major) then q_pe; rows past H are zero
+  // the query tile: q_lat (head-major) then q_pe; rows past Hl are zero
   for (int k = tid; k < kHeads * kChunks; k += kThreads) {
     const int h = k / kChunks, c = k % kChunks;
     uint4 v = make_uint4(0, 0, 0, 0);
-    if (h < H)
+    if (h < Hl)
       v = c < kLora / 8
               ? *reinterpret_cast<const uint4*>(
-                    q_lat + (static_cast<size_t>(h) * R + r) * kLora + c * 8)
+                    q_lat + (static_cast<size_t>(hg + h) * R + r) * kLora +
+                    c * 8)
               : *reinterpret_cast<const uint4*>(
-                    q_pe + (static_cast<size_t>(r) * H + h) * kRope +
+                    q_pe + (static_cast<size_t>(r) * H + hg + h) * kRope +
                     (c - kLora / 8) * 8);
     *reinterpret_cast<uint4*>(qs + h * kRowPad + c * 8) = v;
   }
@@ -449,7 +470,7 @@ mla_attention_kernel(const bf16* __restrict__ q_lat,
   cluster.sync();
 
   // block b combines heads b, b + 8 from the cluster's 8 partials
-  for (int h = split; h < H; h += kSplits) {
+  for (int h = split; h < Hl; h += kSplits) {
     float mp[kSplits], lp[kSplits], M = -INFINITY;
 #pragma unroll
     for (int b = 0; b < kSplits; ++b) {
@@ -474,7 +495,7 @@ mla_attention_kernel(const bf16* __restrict__ q_lat,
     }
     const float inv = M == -INFINITY ? __int_as_float(0x7fffffff) : 1.f / L;
     *reinterpret_cast<__nv_bfloat162*>(
-        out + (static_cast<size_t>(h) * R + r) * kLora + c) =
+        out + (static_cast<size_t>(hg + h) * R + r) * kLora + c) =
         __floats2bfloat162_rn(acc0 * inv, acc1 * inv);
   }
   cluster.sync();                 // peers read this block's shared memory
@@ -488,26 +509,28 @@ extern "C" {
 // cos, sin: fp32 [R, 64] at each row's position, gain: bf16 [512], pos:
 // int64 [R] on the device, cache: row r at cache + r * row_stride
 // elements, [cap, 576] dense; q_nope: [H, R, 128], q_pe: [R, H, 64]. bf16
-// unless stated, dense, 16-byte aligned; 1 <= H <= 16. The Python wrapper
+// unless stated, dense, 16-byte aligned; 1 <= H <= 16 or H = 32; rotate 0
+// copies q_pe and k_pe unrotated (cos, sin unread). The Python wrapper
 // checks all of this before it calls.
 int mla_decode_prep_fwd(const void* q, const void* kv, const void* cosv,
                         const void* sinv, const void* gain, float eps,
                         const void* pos, void* cache, long long row_stride,
-                        int cap, int R, int H, void* q_nope, void* q_pe,
-                        void* stream) {
+                        int cap, int R, int H, int rotate, void* q_nope,
+                        void* q_pe, void* stream) {
   mla_prep_kernel<<<R, kPrepThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(kv),
       static_cast<const float*>(cosv), static_cast<const float*>(sinv),
       static_cast<const bf16*>(gain), eps,
       static_cast<const long long*>(pos), static_cast<bf16*>(cache),
-      row_stride, cap, R, H, static_cast<bf16*>(q_nope),
+      row_stride, cap, R, H, rotate, static_cast<bf16*>(q_nope),
       static_cast<bf16*>(q_pe));
   return static_cast<int>(cudaGetLastError());
 }
 
 // q_lat: [H, R, 512], q_pe: [R, H, 64], cache as for the prep with cap a
 // multiple of 64 up to 8,192, visible: bool [R, cap] (one byte each),
-// out: [H, R, 512]; bf16 unless stated, dense, 16-byte aligned.
+// out: [H, R, 512]; bf16 unless stated, dense, 16-byte aligned; 1 <= H <=
+// 16 or H = 32.
 int mla_decode_attention_fwd(const void* q_lat, const void* q_pe,
                              const void* cache, long long row_stride,
                              const void* visible, void* out, int R, int H,
@@ -525,7 +548,8 @@ int mla_decode_attention_fwd(const void* q_lat, const void* q_pe,
     if (err != cudaSuccess) return static_cast<int>(err);
     if (dev < 256) ready[dev] = 1;
   }
-  mla_attention_kernel<<<dim3(kSplits, R), kThreads, kSmem,
+  mla_attention_kernel<<<dim3(kSplits, R, (H + kHeads - 1) / kHeads),
+                         kThreads, kSmem,
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(q_lat), static_cast<const bf16*>(q_pe),
       static_cast<const bf16*>(cache), row_stride,

@@ -14,8 +14,10 @@ disabled (``enabled=False``) without AWS credentials or boto3.
 
 ``topic_backend: local``: the same two prompts answered by a decoder-only
 MoE LM on the analyzers' device (``models/moe_lm.py``, Moonlight-16B-A3B's
-widths from ``topic_model``), greedy, for a whole analysis batch at once
-(:meth:`TopicClassifier.infer_batch`, span ``topics.batch``): one ragged
+or, with ``model_type: kimi_linear`` and Kimi's own keys, the
+Kimi-Linear-48B-A3B hybrid's widths from ``topic_model``), greedy, for
+a whole analysis batch at once (:meth:`TopicClassifier.infer_batch`, span
+``topics.batch``): one ragged
 prefill and decode of every call's summary prompt, then of every
 classification prompt. A prompt is ``bos``, the user marker, the prompt's
 ids and the assistant marker (the model's chat template waits for its
@@ -151,7 +153,7 @@ class LocalLM:
                 + [self.assistant_id])
 
     def fits(self, ids: Sequence[int], max_new: int) -> bool:
-        return len(ids) + max_new - 1 <= self.cfg.max_position_embeddings
+        return len(ids) + max_new - 1 <= self.cfg.positions
 
     def generate(self, prompts: List[List[int]], max_new: int,
                  kind: str) -> List[str]:
@@ -338,7 +340,7 @@ class TopicClassifier:
                         "Topic prompt of %d tokens refused: with %d new "
                         "tokens it needs more than the model's %d "
                         "positions", len(ids), n_sum,
-                        lm.cfg.max_position_embeddings)
+                        lm.cfg.positions)
                     continue
                 rows.append(i)
                 prompts.append(ids)

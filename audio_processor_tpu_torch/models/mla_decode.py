@@ -6,7 +6,8 @@ layer (``csrc/mla_decode.cu``).
   (nope + rope)] and the latent projection's kv [R, lora + rope] and
   returns q_nope head-major [H, R, nope] and q_pe [R, H, rope] rotated in
   DeepSeek-V3's pairing; it writes each row's latent (c under the latent
-  RMSNorm, then k_pe rotated) into ``cache`` at ``pos``.
+  RMSNorm, then k_pe rotated) into ``cache`` at ``pos``. With ``rotate``
+  False (Kimi-Linear's ``mla_use_nope``) q_pe and k_pe pass unrotated.
 - :func:`mla_decode_attention` takes q_lat = q_nope·W_kvb,k [H, R, lora]
   and q_pe and returns o_lat [H, R, lora]: per row and head, softmax over
   the positions ``visible`` marks of scale · (q_lat·c_j + q_pe·k_pe_j),
@@ -26,8 +27,10 @@ Two implementations of each live here:
   query's product with the cache, the scale, the mask, the softmax, P·c).
 - the kernels, launched by :func:`mla_decode_prep` and
   :func:`mla_decode_attention` for CUDA tensors: bf16 only, at
-  Moonlight-16B-A3B's widths (nope 128, rope 64, lora 512, at most 16
-  heads), a capacity that is a multiple of 64 up to 8,192. The attention
+  Moonlight-16B-A3B's widths (nope 128, rope 64, lora 512), at most 16
+  heads or 32 (Kimi-Linear's: the attention runs them as two groups of
+  16, each its own clusters), a capacity that is a multiple of 64 up to
+  8,192. The attention
   kernel rounds the probabilities to bf16 before P·c (fp32 sums), where
   the plain version keeps them in fp32. A CUDA tensor never falls back to
   the plain version: the wrappers launch the kernels or raise, so a model
@@ -50,7 +53,8 @@ import torch.nn.functional as F
 from audio_processor_tpu_torch.models import _cuda_call
 
 NOPE, ROPE, LORA = 128, 64, 512    # the kernels' widths (Moonlight's)
-MAX_HEADS = 16                     # the MMA's 16 rows
+GROUP = 16                         # the MMA's 16 rows: heads a cluster
+HEAD_COUNTS = set(range(1, GROUP + 1)) | {2 * GROUP}   # the kernels' H
 TILE = 64                          # the attention kernel's positions a tile
 MAX_CAPACITY = 8192                # 8 blocks x 16 tiles of 64 positions
 
@@ -70,16 +74,20 @@ def _rope(x: torch.Tensor, cos: torch.Tensor,
 
 
 def mla_decode_prep_plain(q, kv, cos, sin, gain, eps: float, cache, pos,
-                          heads: int):
+                          heads: int, rotate: bool = True):
     """The PyTorch version of :func:`mla_decode_prep`."""
     R = q.shape[0]
-    rope, lora = cos.shape[-1], gain.shape[0]
+    rope, lora = kv.shape[-1] - gain.shape[0], gain.shape[0]
     qh = q.view(R, heads, -1)
     q_nope = qh[..., :-rope].transpose(0, 1).contiguous()
-    q_pe = _rope(qh[..., -rope:], cos[:, None], sin[:, None])
+    q_pe = qh[..., -rope:]
     c, k_pe = kv.split([lora, rope], dim=-1)
-    latent = torch.cat([F.rms_norm(c, (lora,), gain, eps),
-                        _rope(k_pe, cos, sin)], dim=-1)
+    if rotate:
+        q_pe = _rope(q_pe, cos[:, None], sin[:, None])
+        k_pe = _rope(k_pe, cos, sin)
+    else:
+        q_pe = q_pe.contiguous()
+    latent = torch.cat([F.rms_norm(c, (lora,), gain, eps), k_pe], dim=-1)
     cache.scatter_(1, pos[:, None, None].expand(-1, 1, latent.shape[-1]),
                    latent[:, None])
     return q_nope, q_pe
@@ -117,11 +125,11 @@ def _check_cache(cache, R: int, device: torch.device) -> None:
 def _check_prep(q, kv, cos, sin, gain, cache, pos, heads: int) -> None:
     """Raise ValueError on operands the prep kernel does not take."""
     R = q.shape[0] if q.dim() == 2 else -1
-    if not 1 <= heads <= MAX_HEADS or tuple(q.shape) != (
+    if heads not in HEAD_COUNTS or tuple(q.shape) != (
             R, heads * (NOPE + ROPE)):
         raise ValueError(f"q must be [R, heads * {NOPE + ROPE}] with 1 <= "
-                         f"heads <= {MAX_HEADS}, got {tuple(q.shape)}, "
-                         f"heads {heads}")
+                         f"heads <= {GROUP} or heads = {2 * GROUP}, got "
+                         f"{tuple(q.shape)}, heads {heads}")
     if tuple(kv.shape) != (R, LORA + ROPE):
         raise ValueError(f"kv must be [{R}, {LORA + ROPE}], got "
                          f"{tuple(kv.shape)}")
@@ -145,10 +153,10 @@ def _check_prep(q, kv, cos, sin, gain, cache, pos, heads: int) -> None:
 
 def _check_attention(q_lat, q_pe, cache, visible) -> None:
     """Raise ValueError on operands the attention kernel does not take."""
-    if q_lat.dim() != 3 or q_lat.shape[2] != LORA or not \
-            1 <= q_lat.shape[0] <= MAX_HEADS:
-        raise ValueError(f"q_lat must be [H <= {MAX_HEADS}, R, {LORA}], got "
-                         f"{tuple(q_lat.shape)}")
+    if q_lat.dim() != 3 or q_lat.shape[2] != LORA or \
+            q_lat.shape[0] not in HEAD_COUNTS:
+        raise ValueError(f"q_lat must be [H, R, {LORA}] with H <= {GROUP} "
+                         f"or H = {2 * GROUP}, got {tuple(q_lat.shape)}")
     H, R, _ = q_lat.shape
     if tuple(q_pe.shape) != (R, H, ROPE):
         raise ValueError(f"q_pe must be {(R, H, ROPE)}, got "
@@ -178,29 +186,31 @@ def _on(device: torch.device, name: str) -> bool:
 
 def mla_decode_prep(q: torch.Tensor, kv: torch.Tensor, cos: torch.Tensor,
                     sin: torch.Tensor, gain: torch.Tensor, eps: float,
-                    cache: torch.Tensor, pos: torch.Tensor, heads: int):
+                    cache: torch.Tensor, pos: torch.Tensor, heads: int,
+                    rotate: bool = True):
     """(q_nope [H, R, nope], rotated q_pe [R, H, rope]) from q [R, H *
     (nope + rope)] and kv [R, lora + rope]; writes each row's latent into
     ``cache`` [R, C, lora + rope] (rows may be strided) at ``pos`` (int64
     [R] on the device; a position outside the cache writes nothing on the
     card). cos, sin: fp32 [R, rope] at each row's position; gain: the
-    latent RMSNorm's [lora]. CPU tensors take the plain version, CUDA
-    tensors the kernel (or raise); autograd recording a gradient of an
-    operand raises on every device."""
+    latent RMSNorm's [lora]. ``rotate`` False leaves q_pe and k_pe as
+    projected (cos and sin are then not read). CPU tensors take the plain
+    version, CUDA tensors the kernel (or raise); autograd recording a
+    gradient of an operand raises on every device."""
     _cuda_call.refuse_autograd("mla_decode_prep", q, kv, gain, cache)
     if _on(q.device, "mla_decode_prep"):
         return mla_decode_prep_plain(q, kv, cos, sin, gain, eps, cache, pos,
-                                     heads)
+                                     heads, rotate)
     _check_prep(q, kv, cos, sin, gain, cache, pos, heads)
     R = q.shape[0]
     q_nope = torch.empty(heads, R, NOPE, dtype=q.dtype, device=q.device)
     q_pe = torch.empty(R, heads, ROPE, dtype=q.dtype, device=q.device)
     _cuda_call.call(
-        "mla_decode", "pppppfppliiipp", q.device,
+        "mla_decode", "pppppfppliiiipp", q.device,
         q.data_ptr(), kv.data_ptr(), cos.data_ptr(), sin.data_ptr(),
         gain.data_ptr(), float(eps), pos.data_ptr(), cache.data_ptr(),
-        cache.stride(0), cache.shape[1], R, heads, q_nope.data_ptr(),
-        q_pe.data_ptr(), entry="mla_decode_prep")
+        cache.stride(0), cache.shape[1], R, heads, int(rotate),
+        q_nope.data_ptr(), q_pe.data_ptr(), entry="mla_decode_prep")
     _cuda_call.count_launch(mla_decode_prep)
     return q_nope, q_pe
 

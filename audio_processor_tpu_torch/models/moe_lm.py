@@ -34,6 +34,23 @@ RMSNorm and an untied head give the logits.
   token copies sorted by expert, with the group offsets on the device, so
   no step waits on the host.
 
+The hybrid of Kimi-Linear-48B-A3B (HF ``model_type: kimi_linear``) runs on
+the same block: the layers ``linear_attn_config`` names (1-based
+``kda_layers``) mix tokens by Kimi Delta Attention (``models/kda.py``)
+instead of MLA, and with ``mla_use_nope`` the MLA layers rotate nothing
+(k_pe is still cached, unrotated). :meth:`MoELMConfig.from_dict` reads
+Kimi's own key names.
+
+The expert share: ``n_held_experts`` (Kimi's ``num_experts`` in a
+configuration that states ``expert_parallel.router_experts``) of the
+``n_routed_experts`` the router scores are held here, from
+``first_held_expert`` on, as one chip of an expert-parallel deployment
+holds them. The router keeps its published width and top k, the chosen
+weights are normalised over all k, and then the copies whose expert is not
+held are dropped: the layer gives the part of the routed result its own
+experts give, plus the shared experts (which every chip runs). The
+exchange with the chips that hold the others is not part of this module.
+
 Generation (:meth:`MoELM.generate`): the prompts of a batch are ragged
 rows, packed for every token-wise product (no padding) and attended one
 row at a time in the prefill, which fills each row's latent cache and
@@ -46,9 +63,12 @@ step replays one CUDA graph per (rows, cache capacity, dtype) key
 capacity is the rows' longest prompt plus ``max_new``, rounded up to
 :data:`CACHE_ALIGN` positions, never the prompt length itself, and a step
 attends over that many positions of each row's cache. The rows of one
-count share one cache of ``max_position_embeddings`` positions, which
+count share one cache of :attr:`MoELMConfig.positions` positions, which
 every capacity's graph reads a leading part of. A prompt that needs more
-than ``max_position_embeddings`` positions is refused.
+than :attr:`MoELMConfig.positions` positions (``max_position_embeddings``,
+at most the MLA kernel's :data:`MAX_POSITIONS`) is refused. The KDA layers
+keep a fixed state a row instead: [H, D, D] fp32 and the last K−1 conv
+inputs, written by the prefill and updated in place by each step.
 
 Spans (``obs/profiler.py``): ``topics.prefill`` (``kind``, ``rows``,
 ``tokens`` real, ``padded`` the tokens the products ran over, ``lengths``
@@ -58,7 +78,11 @@ the tokens a row may emit, ``lengths``, ``tokens`` emitted,
 summed over the MoE layers and the steps, tallied on the device inside the
 step and read once at the loop's end) and ``topics.graph`` (``mode``
 capture / replay / eager, ``rows``, ``capacity``, ``steps``,
-``mla_launches``: the MLA attention kernel's launches in its steps).
+``mla_launches`` and ``kda_launches``: the MLA attention kernel's and the
+KDA decode kernel's launches in its steps); ``topics.decode`` also carries
+``state_bytes`` (the KDA states' bytes) and ``experts_held`` (per MoE
+layer); each KDA layer's prefill is a ``topics.kda_prefill`` span
+(``models/kda.py``).
 
 Precision: the weights live in the compute dtype (bf16 on the card), but
 the MoE correction bias stays fp32; the router, the RMSNorm statistics,
@@ -71,17 +95,19 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
-from typing import Any, Callable, Collection, Dict, List, Optional, Sequence
+from typing import (Any, Callable, Collection, Dict, List, Optional,
+                    Sequence, Tuple)
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from audio_processor_tpu_torch.models import (_cuda_call, cuda_graphs,
+from audio_processor_tpu_torch.models import (_cuda_call, cuda_graphs, kda,
                                               mla_decode)
 from audio_processor_tpu_torch.obs import profiler
 
 CACHE_ALIGN = 512     # the latent cache's capacity is a multiple of this
+MAX_POSITIONS = mla_decode.MAX_CAPACITY   # positions a decode state holds
 # With every weight N(0, 0.02) attention over a long prompt is near uniform
 # and a cache or mask fault hardly moves the logits. The stand-in weights
 # draw the attention's q, W_kvb and W_o this many times wider: peaked
@@ -132,8 +158,20 @@ class MoELMConfig:
     attention_bias: bool = False
     bos_token_id: int = 163584
     eos_token_id: int = 163585
+    # the expert share: experts held here (None: all), from this one on
+    n_held_experts: Optional[int] = None
+    first_held_expert: int = 0
+    # the hybrid: 0-based layers of Kimi Delta Attention, its widths, and
+    # MLA without rotation
+    kda_layers: Tuple[int, ...] = ()
+    kda_num_heads: int = 32
+    kda_head_dim: int = 128
+    kda_conv_size: int = 4
+    mla_use_nope: bool = False
 
     def __post_init__(self):
+        object.__setattr__(self, "kda_layers",
+                           tuple(sorted(int(i) for i in self.kda_layers)))
         unsupported = {
             "q_lora_rank": self.q_lora_rank is not None,
             "scoring_func": self.scoring_func != "sigmoid",
@@ -151,6 +189,36 @@ class MoELMConfig:
         if bad:
             raise NotImplementedError(
                 f"moe_lm runs Moonlight-16B-A3B's block; unsupported: {bad}")
+        held = self.held_experts
+        if not (1 <= held and 0 <= self.first_held_expert
+                and self.first_held_expert + held <= self.n_routed_experts):
+            raise ValueError(
+                f"experts held {self.first_held_expert} .. "
+                f"{self.first_held_expert + held - 1} must lie among the "
+                f"router's {self.n_routed_experts}")
+        if any(not 0 <= i < self.num_hidden_layers for i in self.kda_layers):
+            raise ValueError(f"kda_layers {self.kda_layers} outside "
+                             f"{self.num_hidden_layers} layers")
+
+    @property
+    def held_experts(self) -> int:
+        """Routed experts held here."""
+        return self.n_routed_experts if self.n_held_experts is None \
+            else self.n_held_experts
+
+    @property
+    def positions(self) -> int:
+        """Positions a decode state holds: ``max_position_embeddings``, at
+        most :data:`MAX_POSITIONS`."""
+        return min(self.max_position_embeddings, MAX_POSITIONS)
+
+    def is_kda(self, layer: int) -> bool:
+        return layer in self.kda_layers
+
+    @property
+    def mla_layers(self) -> List[int]:
+        return [i for i in range(self.num_hidden_layers)
+                if not self.is_kda(i)]
 
     @property
     def qk_head_dim(self) -> int:
@@ -171,7 +239,36 @@ class MoELMConfig:
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "MoELMConfig":
-        """The keys of ``d`` this class has (a ``config.json`` holds more)."""
+        """The keys of ``d`` this class has (a ``config.json`` holds more),
+        and Kimi-Linear's names for them: ``num_experts_per_token``,
+        ``moe_router_activation_func``, ``moe_renormalize``,
+        ``num_shared_experts``, ``num_expert_group``, ``model_max_length``,
+        ``linear_attn_config`` (1-based ``kda_layers``, ``num_heads``,
+        ``head_dim``, ``short_conv_kernel_size``) and ``num_experts``: the
+        experts held here, of ``expert_parallel.router_experts`` (from
+        ``expert_parallel.first_expert``) where the configuration states a
+        share, else the router's width."""
+        d = dict(d)
+        for kimi, ours in (("num_experts_per_token", "num_experts_per_tok"),
+                           ("moe_router_activation_func", "scoring_func"),
+                           ("moe_renormalize", "norm_topk_prob"),
+                           ("num_shared_experts", "n_shared_experts"),
+                           ("num_expert_group", "n_group"),
+                           ("model_max_length", "max_position_embeddings")):
+            if kimi in d and ours not in d:
+                d[ours] = d[kimi]
+        if "num_experts" in d and "n_routed_experts" not in d:
+            share = d.get("expert_parallel") or {}
+            d["n_routed_experts"] = int(share.get("router_experts",
+                                                  d["num_experts"]))
+            d["n_held_experts"] = int(d["num_experts"])
+            d["first_held_expert"] = int(share.get("first_expert", 0))
+        lin = d.get("linear_attn_config")
+        if lin and "kda_layers" not in d:
+            d["kda_layers"] = [int(i) - 1 for i in lin["kda_layers"]]
+            d["kda_num_heads"] = int(lin["num_heads"])
+            d["kda_head_dim"] = int(lin["head_dim"])
+            d["kda_conv_size"] = int(lin["short_conv_kernel_size"])
         known = {f.name for f in dataclasses.fields(cls)}
         return cls(**{k: v for k, v in d.items() if k in known})
 
@@ -195,14 +292,12 @@ class RMSNorm(nn.Module):
 
 
 def rope_tables(cfg: MoELMConfig, device: torch.device) -> tuple:
-    """(cos, sin) [max_position_embeddings, qk_rope_head_dim] in fp32, as
-    HF's rotary embedding builds them (frequencies repeated over the two
-    halves)."""
+    """(cos, sin) [positions, qk_rope_head_dim] in fp32, as HF's rotary
+    embedding builds them (frequencies repeated over the two halves)."""
     d = cfg.qk_rope_head_dim
     inv = 1.0 / (cfg.rope_theta ** (torch.arange(0, d, 2, dtype=torch.float32,
                                                  device=device) / d))
-    t = torch.arange(cfg.max_position_embeddings, dtype=torch.float32,
-                     device=device)
+    t = torch.arange(cfg.positions, dtype=torch.float32, device=device)
     emb = torch.cat([torch.outer(t, inv)] * 2, dim=-1)
     return emb.cos(), emb.sin()
 
@@ -220,7 +315,9 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
 
 
 class LatentAttention(nn.Module):
-    """MLA without a q LoRA (HF ``DeepseekV3Attention``'s modules)."""
+    """MLA without a q LoRA (HF ``DeepseekV3Attention``'s modules); with
+    ``mla_use_nope`` q_pe and k_pe are not rotated, in prefill and decode
+    alike."""
 
     def __init__(self, cfg: MoELMConfig):
         super().__init__()
@@ -235,20 +332,23 @@ class LatentAttention(nn.Module):
             bias=False)
         self.o_proj = nn.Linear(nh * cfg.v_head_dim, h, bias=False)
         self.scale = cfg.qk_head_dim ** -0.5
+        self.rotate = not cfg.mla_use_nope
 
     def project(self, x, cos, sin):
         """x [T, H] at positions whose (cos, sin) are [T, rope] -> (q_nope
         [T, nh, nope], rotated q_pe [T, nh, rope], latent [T, kv_lora +
-        rope]: the normalised c and the rotated k_pe, as cached)."""
+        rope]: the normalised c and the rotated k_pe, as cached; without
+        rotation under ``mla_use_nope``)."""
         cfg = self.cfg
         q = F.linear(x, self.q_proj.weight).unflatten(-1, (self.nh, -1))
         q_nope, q_pe = q.split([cfg.qk_nope_head_dim, cfg.qk_rope_head_dim],
                                dim=-1)
         kv = F.linear(x, self.kv_a_proj_with_mqa.weight)
         c, k_pe = kv.split([cfg.kv_lora_rank, cfg.qk_rope_head_dim], dim=-1)
-        q_pe = apply_rope(q_pe, cos[:, None], sin[:, None])
-        latent = torch.cat([self.kv_a_layernorm(c),
-                            apply_rope(k_pe, cos, sin)], dim=-1)
+        if self.rotate:
+            q_pe = apply_rope(q_pe, cos[:, None], sin[:, None])
+            k_pe = apply_rope(k_pe, cos, sin)
+        latent = torch.cat([self.kv_a_layernorm(c), k_pe], dim=-1)
         return q_nope, q_pe, latent
 
     def expand(self, latent: torch.Tensor):
@@ -295,7 +395,7 @@ class LatentAttention(nn.Module):
         q_nope, q_pe = mla_decode.mla_decode_prep(
             F.linear(x, self.q_proj.weight),
             F.linear(x, self.kv_a_proj_with_mqa.weight), cos, sin,
-            norm.weight, norm.eps, cache, pos, self.nh)
+            norm.weight, norm.eps, cache, pos, self.nh, self.rotate)
         w = self.kv_b_proj.weight.unflatten(0, (self.nh, -1))
         w_k, w_v = w.split([cfg.qk_nope_head_dim, cfg.v_head_dim], dim=1)
         o_lat = mla_decode.mla_decode_attention(
@@ -333,35 +433,44 @@ class Router(nn.Module):
 
 
 class Experts(nn.Module):
-    """The routed experts stacked: ``gate_up_proj`` [E, 2F, H] (each
-    expert's gate rows, then its up rows) and ``down_proj`` [E, H, F]."""
+    """The routed experts held here stacked: ``gate_up_proj`` [E, 2F, H]
+    (each expert's gate rows, then its up rows) and ``down_proj`` [E, H,
+    F], E = ``held_experts``, the router's experts ``first_held_expert``
+    on."""
 
     def __init__(self, cfg: MoELMConfig):
         super().__init__()
-        E, h, f = (cfg.n_routed_experts, cfg.hidden_size,
+        E, h, f = (cfg.held_experts, cfg.hidden_size,
                    cfg.moe_intermediate_size)
+        self.total, self.first = cfg.n_routed_experts, cfg.first_held_expert
         self.gate_up_proj = nn.Parameter(torch.empty(E, 2 * f, h))
         self.down_proj = nn.Parameter(torch.empty(E, h, f))
 
     def forward(self, x: torch.Tensor, idx: torch.Tensor,
                 weight: torch.Tensor) -> torch.Tensor:
-        """x [T, H], chosen experts idx [T, k] and their weights [T, k]
-        (fp32) -> sum over k of weight · expert(x), in x's dtype. The T·k
-        token copies are sorted by expert and run as two grouped GEMMs
-        whose group ends are counted on the device."""
+        """x [T, H], chosen experts idx [T, k] (the router's numbering) and
+        their weights [T, k] (fp32) -> sum over the k held here of weight ·
+        expert(x), in x's dtype. The T·k token copies are sorted by expert
+        (held experts first) and run as two grouped GEMMs whose group ends
+        are counted on the device; a copy of an expert not held is
+        dropped."""
         T, k = idx.shape
         E = self.gate_up_proj.shape[0]
         flat = idx.reshape(-1)
+        if E < self.total:      # held experts 0 .. E-1, the others after
+            flat = (flat - self.first) % self.total
         order = torch.argsort(flat, stable=True)
-        counts = torch.zeros(E, dtype=torch.long, device=x.device) \
+        counts = torch.zeros(self.total, dtype=torch.long, device=x.device) \
             .scatter_add_(0, flat, torch.ones_like(flat))
-        offs = counts.cumsum(0).to(torch.int32)
+        offs = counts[:E].cumsum(0).to(torch.int32)
         xs = x.index_select(0, order // k)
         g, u = torch._grouped_mm(xs, self.gate_up_proj.transpose(-2, -1),
                                  offs=offs).chunk(2, dim=-1)
         ys = torch._grouped_mm((F.silu(g) * u).contiguous(),
                                self.down_proj.transpose(-2, -1), offs=offs)
         y = torch.empty_like(ys).index_copy_(0, order, ys)
+        if E < self.total:      # rows past the last group are not computed
+            y = torch.where((flat < E)[:, None], y, 0)
         return (y.view(T, k, -1).float() * weight[..., None]).sum(1) \
             .to(x.dtype)
 
@@ -397,7 +506,9 @@ class MoE(nn.Module):
 class DecoderLayer(nn.Module):
     def __init__(self, cfg: MoELMConfig, i: int):
         super().__init__()
-        self.self_attn = LatentAttention(cfg)
+        self.kda = cfg.is_kda(i)
+        self.self_attn = kda.KimiDeltaAttention(cfg) if self.kda \
+            else LatentAttention(cfg)
         self.mlp = MoE(cfg) if cfg.is_moe(i) else GatedMLP(
             cfg.hidden_size, cfg.intermediate_size)
         self.input_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
@@ -413,10 +524,11 @@ class DecoderLayer(nn.Module):
 
 class _DecodeState:
     """The static buffers of the decode loop of one (rows, dtype) key on one
-    device, at the model's full positions: every layer's latent cache,
-    each row's position, input token and done flag, the step index, the
-    tokens emitted, the last step's logits, each step's chosen experts per
-    MoE layer, the experts-touched tally; and the step graphs by cache
+    device, at the model's :attr:`MoELMConfig.positions`: every MLA layer's
+    latent cache, every KDA layer's state (fp32) and conv inputs, each
+    row's position, input token and done flag, the step index, the tokens
+    emitted, the last step's logits, each step's chosen experts per MoE
+    layer, the experts-touched tally; and the step graphs by cache
     capacity, which read and write only these. It lives among the model's
     graphs on its device (``dg``), so new weight storage drops it with
     them."""
@@ -425,11 +537,18 @@ class _DecodeState:
                  dg: cuda_graphs.DeviceGraphs):
         cfg = lm.cfg
         n_moe = len(cfg.moe_layers)
-        capacity = cfg.max_position_embeddings
+        capacity = cfg.positions
+        n_kda, D = len(cfg.kda_layers), cfg.kda_head_dim
+        W = cfg.kda_num_heads * D
         with torch.inference_mode(False):   # written in place at any mode
             z = dict(device=dg.device)
-            self.cache = torch.zeros(cfg.num_hidden_layers, rows, capacity,
+            self.cache = torch.zeros(len(cfg.mla_layers), rows, capacity,
                                      cfg.latent_dim, dtype=dtype, **z)
+            self.kda_state = torch.zeros(n_kda, rows, cfg.kda_num_heads, D,
+                                         D, dtype=torch.float32, **z)
+            self.conv_state = torch.zeros(n_kda, rows,
+                                          cfg.kda_conv_size - 1, 3 * W,
+                                          dtype=dtype, **z)
             self.pos = torch.zeros(rows, dtype=torch.long, **z)
             self.tok = torch.zeros(rows, dtype=torch.long, **z)
             self.done = torch.zeros(rows, dtype=torch.bool, **z)
@@ -458,6 +577,9 @@ class MoELM(nn.Module):
                                     range(cfg.num_hidden_layers))
         self.norm = RMSNorm(h, cfg.rms_norm_eps)
         self.lm_head = nn.Linear(h, cfg.vocab_size, bias=False)
+        # each layer's index among the layers of its kind (MLA or KDA)
+        self.slot = [(cfg.kda_layers if cfg.is_kda(i) else cfg.mla_layers)
+                     .index(i) for i in range(cfg.num_hidden_layers)]
         self._rope: Dict[torch.device, tuple] = {}
         self._graphs = cuda_graphs.GraphCache()   # decode states, graphs
         # tap(kind, rows, steps) -> decode steps whose logits generate keeps
@@ -467,13 +589,15 @@ class MoELM(nn.Module):
         self.tapped: Dict[str, Dict[str, Any]] = {}
 
     def cast(self, dtype: torch.dtype) -> "MoELM":
-        """Every weight to ``dtype`` but the routers' correction bias
-        (fp32)."""
+        """Every weight to ``dtype`` but the routers' correction bias and
+        the KDA layers' A_log and dt_bias (fp32)."""
         self.to(dtype)
+        fp32 = {Router: ("e_score_correction_bias",),
+                kda.KimiDeltaAttention: ("A_log", "dt_bias")}
         for m in self.modules():
-            if isinstance(m, Router):
-                m.e_score_correction_bias.data = \
-                    m.e_score_correction_bias.data.float()
+            for name in fp32.get(type(m), ()):
+                p = getattr(m, name)
+                p.data = p.data.float()
         return self
 
     @property
@@ -492,7 +616,7 @@ class MoELM(nn.Module):
         ``max_new`` tokens; raises ValueError when a row needs more
         positions than the model has."""
         need = max(lengths) + max_new - 1
-        limit = self.cfg.max_position_embeddings
+        limit = self.cfg.positions
         if need > limit:
             raise ValueError(
                 f"a prompt of {max(lengths)} tokens with {max_new} new "
@@ -511,12 +635,15 @@ class MoELM(nn.Module):
 
     # ---- prefill -----------------------------------------------------
     def prefill(self, st: _DecodeState, prompts: Sequence[Sequence[int]],
-                kind: str, routes: Optional[list] = None) -> torch.Tensor:
+                kind: str, routes: Optional[list] = None,
+                kda_inputs: Optional[list] = None) -> torch.Tensor:
         """The ragged prompts through every layer (span ``topics.prefill``):
-        fills each row's cache at positions 0 .. len - 1, emits each row's
-        first token (the greedy choice at its last position) into step 0 of
-        ``st`` and returns those logits [R, V]. ``routes`` gets each MoE
-        layer's chosen experts [N, k] over the packed tokens."""
+        fills each row's cache (or KDA state) at positions 0 .. len - 1,
+        emits each row's first token (the greedy choice at its last
+        position) into step 0 of ``st`` and returns those logits [R, V].
+        ``routes`` gets each MoE layer's chosen experts [N, k] over the
+        packed tokens, ``kda_inputs`` each KDA layer's input [len, H] of the
+        first row."""
         cfg = self.cfg
         dev = st.pos.device
         lengths = [len(p) for p in prompts]
@@ -538,9 +665,15 @@ class MoELM(nn.Module):
             cos, sin = cos_t.index_select(0, pos), sin_t.index_select(0, pos)
             x = F.embedding(ids, self.embed_tokens.weight)
             for i, layer in enumerate(self.layers):
-                a, latent = layer.self_attn.prefill(
-                    layer.input_layernorm(x), cos, sin, rows)
-                st.cache[i].index_put_((row_of, pos), latent)
+                j, h = self.slot[i], layer.input_layernorm(x)
+                if layer.kda:
+                    if kda_inputs is not None:
+                        kda_inputs.append(h[:lengths[0]].clone())
+                    a = layer.self_attn.prefill(h, rows, st.kda_state[j],
+                                                st.conv_state[j], i)
+                else:
+                    a, latent = layer.self_attn.prefill(h, cos, sin, rows)
+                    st.cache[j].index_put_((row_of, pos), latent)
                 x = layer.ffn(x + a, routes)
             h = self.norm(x.index_select(0, last))
             logits = F.linear(h, self.lm_head.weight)
@@ -558,10 +691,10 @@ class MoELM(nn.Module):
     def _step(self, st: _DecodeState, cap: int) -> None:
         """One position of every row, all on the device: embed each row's
         input token at its position, run the layers (absorbed attention
-        over the first ``cap`` positions of the row's cache), the head and
-        the greedy choice; record the token (eos once a row is done), the
-        chosen experts and the distinct experts per MoE layer; advance
-        every row."""
+        over the first ``cap`` positions of the row's cache, or the KDA
+        step on the row's state), the head and the greedy choice; record
+        the token (eos once a row is done), the chosen experts and the
+        distinct held experts per MoE layer; advance every row."""
         cfg = self.cfg
         cos_t, sin_t = self.rope(st.pos.device)
         pos = st.pos
@@ -570,9 +703,14 @@ class MoELM(nn.Module):
         x = F.embedding(st.tok, self.embed_tokens.weight)
         routes: list = []
         for i, layer in enumerate(self.layers):
-            x = x + layer.self_attn.decode(layer.input_layernorm(x), cos,
-                                           sin, st.cache[i, :, :cap], pos,
-                                           visible)
+            j, h = self.slot[i], layer.input_layernorm(x)
+            if layer.kda:
+                x = x + layer.self_attn.decode(h, st.kda_state[j],
+                                               st.conv_state[j])
+            else:
+                x = x + layer.self_attn.decode(h, cos, sin,
+                                               st.cache[j, :, :cap], pos,
+                                               visible)
             x = layer.ffn(x, routes)
         st.logits.copy_(F.linear(self.norm(x), self.lm_head.weight))
         nxt = st.logits.argmax(dim=-1)
@@ -582,7 +720,9 @@ class MoELM(nn.Module):
         st.routes.index_copy_(0, st.step, chosen.to(torch.int16)[None])
         used = torch.zeros(chosen.shape[0], cfg.n_routed_experts,
                            dtype=torch.bool, device=pos.device)
-        st.touched += used.scatter_(1, chosen.flatten(1), True).sum()
+        first = cfg.first_held_expert
+        st.touched += used.scatter_(1, chosen.flatten(1), True)[
+            :, first:first + cfg.held_experts].sum()
         st.done |= nxt == cfg.eos_token_id
         st.tok.copy_(tok)
         st.pos += 1
@@ -614,7 +754,10 @@ class MoELM(nn.Module):
                              if int(ids[r, j]) == eos), max_new)
                        for r in range(R)]
             attrs = {"tokens": sum(emitted),
-                     "experts_touched": int(st.touched.item())}
+                     "experts_touched": int(st.touched.item()),
+                     "experts_held": self.cfg.held_experts,
+                     "state_bytes": st.kda_state.numel()
+                     * st.kda_state.element_size()}
             if sp is not None:
                 sp.attrs.update(attrs)
         return dict(attrs, ids=ids, emitted=emitted, tapped=tapped)
@@ -625,20 +768,19 @@ class MoELM(nn.Module):
         capture, then replays; later, replays only. A key whose capture
         failed runs eagerly. The span's ``mla_launches`` counts the MLA
         attention kernel's launches in these steps, a replay's being its
-        capture's."""
+        capture's, and ``kda_launches`` the KDA decode kernel's."""
         R = st.ids.shape[0]
-        attention = mla_decode.mla_decode_attention
+        launched = {mla_decode.mla_decode_attention: 0, kda.kda_decode: 0}
         with profiler.span("topics.graph", rows=R, capacity=cap,
                            steps=steps) as sp:
             g = st.graphs.get(cap, False)       # False: not yet captured
-            mode, launched = ("replay" if g else "eager"), 0
+            mode = "replay" if g else "eager"
             for s in range(1, steps + 1):
                 if g:
                     st.dg.replay(g)
-                    launched += g.launches.get(attention, 0)
+                    n = g.launches
                 else:
                     _, n = _cuda_call.counted(self._step, st, cap)
-                    launched += n.get(attention, 0)
                     if g is False:
                         # the eager step made the lazy state (the rope
                         # tables) that a capture cannot make
@@ -647,11 +789,15 @@ class MoELM(nn.Module):
                             f"an LM decode step ({R} rows, {cap} "
                             "positions)")
                         mode = "capture" if g else "eager"
+                for wrapper in launched:
+                    launched[wrapper] += n.get(wrapper, 0)
                 if s in taps:
                     tapped[s] = st.logits.clone()
             if sp is not None:
                 sp.attrs["mode"] = mode
-                sp.attrs["mla_launches"] = launched
+                sp.attrs["mla_launches"] = launched[
+                    mla_decode.mla_decode_attention]
+                sp.attrs["kda_launches"] = launched[kda.kda_decode]
 
     # ---- generation --------------------------------------------------
     def generate(self, prompts: Sequence[Sequence[int]], max_new: int,
@@ -660,7 +806,9 @@ class MoELM(nn.Module):
         ``eos_token_id`` or ``max_new`` tokens: ``ids`` [R, max_new] on the
         host (each row's tokens, eos included, then eos), ``emitted``
         (tokens per row, eos included), ``tokens`` and
-        ``experts_touched``."""
+        ``experts_touched``. Under :attr:`tap`, ``tapped[kind]`` also keeps,
+        on the device, every KDA layer's state after the prefill and its
+        input of the first row."""
         if not prompts or max_new < 1 or min(len(p) for p in prompts) < 1:
             raise ValueError("generate needs non-empty prompts and "
                              "max_new >= 1")
@@ -670,7 +818,10 @@ class MoELM(nn.Module):
         taps = set(self.tap(kind, len(prompts), max_new - 1)) \
             if self.tap else set()
         routes: Optional[list] = [] if self.tap else None
-        first = self.prefill(st, prompts, kind, routes)
+        inputs: Optional[list] = [] if self.tap else None
+        first = self.prefill(st, prompts, kind, routes, inputs)
+        # each KDA layer's state after the prefill (the decode updates it)
+        state = st.kda_state.clone() if self.tap else None
         out = self.decode(st, cap, max_new, kind,
                           [len(p) for p in prompts], taps)
         if self.tap:
@@ -681,6 +832,7 @@ class MoELM(nn.Module):
                           for s, lg in out["tapped"].items()},
                 "prefill_routes": torch.stack(routes).cpu(),
                 "decode_routes": st.routes[1:max_new].to("cpu", copy=True),
+                "kda_state": state, "kda_inputs": inputs,
                 "ids": out["ids"]}
         return out
 
@@ -688,9 +840,10 @@ class MoELM(nn.Module):
 def build_synthetic(cfg: MoELMConfig, device, seed: int = 0,
                     dtype: torch.dtype = torch.float32) -> MoELM:
     """Seeded stand-in weights made on ``device`` in ``dtype``: every
-    product and the embedding N(0, 0.02), the attention's q, W_kvb and W_o
+    product and the embedding N(0, 0.02), the MLA's q, W_kvb and W_o
     :data:`ATTENTION_SCALE` times wider, RMSNorm gains 1, the routers'
-    correction bias N(0, :data:`BIAS_STD`) (fp32)."""
+    correction bias N(0, :data:`BIAS_STD`) (fp32), the KDA layers' own as
+    :func:`kda.stand_in` draws them."""
     device = torch.device(device)
     with torch.device("meta"):
         model = MoELM(cfg)
@@ -698,9 +851,14 @@ def build_synthetic(cfg: MoELMConfig, device, seed: int = 0,
     model = model.to_empty(device=device)
     gen = torch.Generator(device=device).manual_seed(int(seed))
     wide = ("q_proj", "kv_b_proj", "o_proj")
+    mixers = {f"layers.{i}.self_attn.": cfg.is_kda(i)
+              for i in range(cfg.num_hidden_layers)}
     with torch.no_grad():
         for name, p in model.named_parameters():
-            if "layernorm" in name or name.startswith("norm."):
+            mixer = name[:name.find("self_attn.") + 10]
+            if mixers.get(mixer):
+                kda.stand_in(name[len(mixer):], p, gen)
+            elif "layernorm" in name or name.startswith("norm."):
                 p.fill_(1.0)
             elif name.endswith("e_score_correction_bias"):
                 p.normal_(0.0, BIAS_STD, generator=gen)

@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N] [--only s2t|ln|topics|mla]
+    python3 chip_smoke.py [--seed N] [--only s2t|ln|topics|mla|kimi]
 
 Phases, each of which fails the run (non-zero exit) on any error:
 
@@ -237,7 +237,21 @@ Phases, each of which fails the run (non-zero exit) on any error:
    layers' caches beside their byte bounds, their plain versions, the
    one SDPA call that computes the attention and the decode's composition
    before the kernels (``--only topics`` runs phases 1, 2, 14b and 14
-   alone, ``--only mla`` phases 1, 2 and 14b).
+   alone, ``--only mla`` phases 1, 2 and 14b);
+15. the Kimi-Linear hybrid's kernels (``--only kimi`` runs phases 1, 2
+   and 15 alone): 15a the KDA decode kernel (``csrc/kda_decode.cu``) at
+   32 heads of 128 over 8 rows, a KDA layer at published widths (hidden
+   2,304, bf16 stand-in weights): a prefill of a 300-token row (the
+   chunked fp32 form) then 4 decode steps by the kernel against the
+   prefill of all 304 tokens (states, outputs) and against the plain
+   twin (outputs within a bf16 step, states within 1e-5, conv states bit
+   for bit); then us per launch over 20 layers' states in a graph beside
+   the byte bound and the twin's; 15b the MLA kernels at 32 heads without
+   rotation (8 rows, capacities 1,536 and 4,096) against their plain
+   versions and SDPA, us per launch beside the byte bound; 15c one
+   graph-replayed ``generate`` of a 27-layer hybrid at published widths
+   with 8 of the 256 experts held, whose every ``topics.graph`` span has
+   ``kda_launches`` 20 x its steps and ``mla_launches`` 7 x its steps.
 
 Kernel launch counts are set to 0 just before each of the paths 5, 5b,
 6, 7, 7c, 8, 10, 11a (in each process) and 11e, before phase 13's
@@ -255,6 +269,7 @@ import argparse
 import ast
 import contextlib
 import csv
+import dataclasses
 import importlib.util
 import json
 import logging
@@ -273,7 +288,7 @@ import torch.nn.functional as F
 
 REPO = Path(__file__).resolve().parent
 SOURCES = ("flash_rel_attention", "flash_attention", "flash_rel_parts",
-           "decode_attention", "add_layer_norm", "mla_decode")
+           "decode_attention", "add_layer_norm", "mla_decode", "kda_decode")
 # Kernel vs plain: fp32 holds the JAX tests' tolerance (only summation
 # order differs); bf16 outputs may differ by one bf16 rounding (2^-8 to
 # 2^-7 relative) since both sides compute in fp32 and round at the end.
@@ -1041,12 +1056,14 @@ def _counters() -> dict:
         flash_rel_attention,
     )
     from audio_processor_tpu_torch.models.layer_norm import add_layer_norm
+    from audio_processor_tpu_torch.models.kda import kda_decode
     from audio_processor_tpu_torch.models.mla_decode import (
         mla_decode_attention,
         mla_decode_prep,
     )
 
-    return {"flash_rel_attention": flash_rel_attention,
+    return {"kda_decode": kda_decode,
+            "flash_rel_attention": flash_rel_attention,
             "flash_attention": flash_attention, "kb640": frp.kb640,
             "bare": frp.bare, "variant": frp.variant,
             "decode_attention": decode_attention,
@@ -1172,7 +1189,8 @@ def ablation_path(seed: int) -> dict:
     expect = {"flash_rel_attention": per, "flash_attention": per,
               "kb640": per, "bare": 2 * per, "variant": 6 * per,
               "decode_attention": 0, "add_layer_norm": 0,
-              "mla_decode_prep": 0, "mla_decode_attention": 0}
+              "mla_decode_prep": 0, "mla_decode_attention": 0,
+              "kda_decode": 0}
     log(f"[ablation] launches {counts} (expected {expect})")
     assert counts == expect, counts
     return {"launches": counts, "ms": ms}
@@ -4062,6 +4080,207 @@ def mla_decode_check(seed: int) -> dict:
     return out
 
 
+def _kda_layer(dev, seed: int):
+    """A KDA layer at Kimi-Linear's widths (hidden 2,304, 32 heads of 128)
+    with stand-in bf16 weights (``kda.stand_in``; A_log, dt_bias fp32)."""
+    from types import SimpleNamespace
+
+    from audio_processor_tpu_torch.models import kda
+
+    cfg = SimpleNamespace(kda_num_heads=32, kda_head_dim=128,
+                          kda_conv_size=4, hidden_size=2304,
+                          rms_norm_eps=1e-5)
+    layer = kda.KimiDeltaAttention(cfg).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    with torch.no_grad():
+        for name, p in layer.named_parameters():
+            kda.stand_in(name, p, gen)
+    layer = layer.to(torch.bfloat16).eval().requires_grad_(False)
+    for name in ("A_log", "dt_bias"):
+        getattr(layer, name).data = getattr(layer, name).data.float()
+    return layer
+
+
+def kimi_phase(seed: int) -> dict:
+    """Phase 15 (see the module's notes): the KDA decode kernel, the MLA
+    kernels at 32 heads without rotation, and the launches of a
+    graph-replayed hybrid's steps. -> {"err", "timed", "launches"}."""
+    from audio_processor_tpu_torch.models import kda
+    from audio_processor_tpu_torch.models import mla_decode as md
+    from audio_processor_tpu_torch.models import moe_lm
+    from audio_processor_tpu_torch.obs import profiler
+
+    dev = torch.device(DEVICE)
+    out: dict = {"err": {}, "timed": {}, "launches": {}}
+    # 15a: prefill then kernel steps = the longer prefill; kernel = twin
+    layer = _kda_layer(dev, seed + 71)
+    R, T, n, layers = 8, 300, 4, 20
+    H, D, W = layer.H, layer.D, layer.W
+    gen = torch.Generator(device=dev).manual_seed(seed + 72)
+    x = torch.randn(R, T + n, 2304, device=dev, generator=gen) \
+        .to(torch.bfloat16)
+    rows = [(r * T, T) for r in range(R)]
+    rows_n = [(r * (T + n), T + n) for r in range(R)]
+
+    def fresh():
+        return (torch.zeros(R, H, D, D, device=dev),
+                torch.zeros(R, 3, 3 * W, device=dev, dtype=torch.bfloat16))
+
+    with torch.inference_mode():
+        st, cv = fresh()
+        layer.prefill(x[:, :T].flatten(0, 1), rows, st, cv)
+        st2, cv2 = st.clone(), cv.clone()
+        steps, plain = [], []
+        for j in range(n):
+            steps.append(layer.decode(x[:, T + j], st, cv))
+            p = F.linear(x[:, T + j], layer.in_proj.weight)
+            _, fg, _ = layer._split(p)
+            plain.append(F.linear(kda.kda_decode_plain(
+                p, fg, layer.conv_weight, layer.A_log, layer.dt_bias,
+                layer.g_bias, layer.o_norm, layer.eps, st2, cv2),
+                layer.o_proj.weight))
+        want_st, want_cv = fresh()
+        longer = layer.prefill(x.flatten(0, 1), rows_n, want_st, want_cv) \
+            .view(R, T + n, -1)[:, T:]
+    got = torch.stack(steps, 1).float()
+    rel = float((got - longer.float()).norm() / longer.float().norm())
+    srel = float((st - want_st).norm() / want_st.norm())
+    assert rel < 2e-2 and srel < 1e-3, (rel, srel)
+    torch.testing.assert_close(got, torch.stack(plain, 1).float(),
+                               atol=2e-2, rtol=1e-2)
+    torch.testing.assert_close(st, st2, atol=1e-5, rtol=1e-5)
+    assert torch.equal(cv, cv2) and torch.equal(cv, want_cv)
+    out["err"]["kda"] = float((got - torch.stack(plain, 1).float()).abs()
+                              .max())
+    out["err"]["kda_vs_prefill_rel"] = rel
+    out["err"]["kda_state_vs_prefill_rel"] = srel
+    # us per launch over 20 layers' states (cold in L2, as in a step)
+    states = torch.randn(layers, R, H, D, D, device=dev, generator=gen) \
+        * 0.05
+    convs = torch.randn(layers, R, 3, 3 * W, device=dev, generator=gen) \
+        .to(torch.bfloat16)
+    p = F.linear(x[:, T], layer.in_proj.weight)
+    _, fg, _ = layer._split(p)
+    args = (p, fg, layer.conv_weight, layer.A_log, layer.dt_bias,
+            layer.g_bias, layer.o_norm, layer.eps)
+    nbytes = (2 * 4 * R * H * D * D + 2 * R * 6 * W + 2 * R * H
+              + 2 * 2 * R * 3 * 3 * W + 2 * (3 * W * 4 + W + D)
+              + 4 * (H + W))
+    with torch.inference_mode():
+        us = 1e3 * _graph_ms(lambda: [kda.kda_decode(
+            *args, states[i], convs[i]) for i in range(layers)], 20) / layers
+        plain_us = 1e3 * _graph_ms(lambda: [kda.kda_decode_plain(
+            *args, states[i], convs[i]) for i in range(layers)], 5) / layers
+        kernels = _graph_kernels(lambda: [kda.kda_decode_plain(
+            *args, states[i], convs[i]) for i in range(layers)]) / layers
+    out["timed"]["kda"] = {"us": us, "plain_us": plain_us,
+                           "plain_kernels_per_layer": kernels,
+                           "bound_us": 1e6 * nbytes / 3.35e12,
+                           "bytes": nbytes}
+    del states, convs, layer
+    # 15b: the MLA kernels at 32 heads, no rotation
+    cfg = dataclasses.replace(moe_lm.MoELMConfig(), num_attention_heads=32,
+                              num_key_value_heads=32, hidden_size=2304,
+                              mla_use_nope=True)
+    torch.manual_seed(seed + 73)
+    attn = moe_lm.LatentAttention(cfg)
+    with torch.no_grad():
+        for name, prm in attn.named_parameters():
+            if "layernorm" in name:
+                prm.copy_(1 + 0.2 * torch.randn(prm.shape))
+            else:
+                prm.normal_(0.0, 0.04 if "kv_a" not in name else 0.02)
+    attn = attn.to(dev).to(torch.bfloat16).eval().requires_grad_(False)
+    mla_layers, nh = 7, 32
+    buf = torch.randn(mla_layers, R, 8192, cfg.latent_dim, device=dev,
+                      generator=gen).to(torch.bfloat16)
+    slots = torch.arange(8192, device=dev)
+    norm = attn.kv_a_layernorm
+    w_k = attn.kv_b_proj.weight.unflatten(0, (nh, -1))[
+        :, :cfg.qk_nope_head_dim]
+    errs = []
+    for cap, lo, hi in ((1536, 1270, 1470), (4096, 3890, 4000)):
+        pos = torch.randint(lo, hi, (R,), device=dev, generator=gen)
+        visible = slots[None, :cap] <= pos[:, None]
+        xq = torch.randn(R, cfg.hidden_size, device=dev, generator=gen) \
+            .to(torch.bfloat16)
+        with torch.inference_mode():
+            q, kv = attn.q_proj(xq), attn.kv_a_proj_with_mqa(xq)
+            zeros = torch.zeros(R, 64, device=dev)
+            cache = buf[0, :, :cap]
+            plain_cache = cache.clone()
+            pargs = (q, kv, zeros, zeros, norm.weight, norm.eps)
+            got = md.mla_decode_prep(*pargs, cache, pos, nh, False)
+            want = md.mla_decode_prep_plain(*pargs, plain_cache, pos, nh,
+                                            False)
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
+            cache.copy_(plain_cache)
+            q_lat = torch.bmm(got[0], w_k)
+            o = md.mla_decode_attention(q_lat, got[1], cache, visible,
+                                        attn.scale)
+            pl = md.mla_decode_attention_plain(q_lat, got[1], cache, visible,
+                                               attn.scale)
+            torch.testing.assert_close(o.float(), pl.float(), atol=1e-2,
+                                       rtol=1e-2)
+            errs.append(float((o.float() - pl.float()).abs().max()))
+        if cap != 1536:
+            continue
+        nbytes = int((pos + 1).sum()) * cfg.latent_dim * 2 \
+            + 2 * R * nh * (2 * cfg.kv_lora_rank + 64) + R * cap
+        with torch.inference_mode():
+            us = 1e3 * _graph_ms(lambda: [md.mla_decode_attention(
+                q_lat, got[1], buf[i, :, :cap], visible, attn.scale)
+                for i in range(mla_layers)], 20) / mla_layers
+            plain_us = 1e3 * _graph_ms(lambda: [
+                md.mla_decode_attention_plain(
+                    q_lat, got[1], buf[i, :, :cap], visible, attn.scale)
+                for i in range(mla_layers)], 5) / mla_layers
+            library = _mla_library_us(q_lat, got[1], buf[:, :, :cap],
+                                      visible, attn.scale)
+        out["timed"]["mla32"] = {"us": us, "plain_us": plain_us,
+                                 "library_us": library,
+                                 "bound_us": 1e6 * nbytes / 3.35e12,
+                                 "bytes": nbytes}
+    out["err"]["mla32"] = max(errs)
+    del buf, attn
+    torch.cuda.empty_cache()
+    # 15c: a graph-replayed generate of the 27-layer hybrid, 8 experts held
+    spec = json.loads(Path("benchmark_torch/configs/"
+                           "kimi-linear-48b-a3b.topics.json").read_text())
+    small = moe_lm.MoELMConfig.from_dict(dict(spec, num_experts=8))
+    lm = moe_lm.build_synthetic(small, dev, seed + 74, torch.bfloat16) \
+        .requires_grad_(False)
+    prompts = [torch.randint(0, 160000, (L,), generator=torch.Generator()
+                             .manual_seed(seed + L)).tolist()
+               for L in (300, 371, 129, 64, 65, 200, 333, 250)]
+    _reset_launches()
+    with profiler.recording_spans():
+        seen = {s.id for s in profiler.spans()}
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            for _ in range(2):
+                lm.generate(prompts, 9)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        graphs = [s for s in profiler.spans() if s.id not in seen
+                  and s.name == "topics.graph"]
+    assert [s.attrs["mode"] for s in graphs] == ["capture", "replay"], graphs
+    for s in graphs:
+        assert s.attrs["kda_launches"] == 20 * s.attrs["steps"], s.attrs
+        assert s.attrs["mla_launches"] == 7 * s.attrs["steps"], s.attrs
+    out["launches"] = {"kda": kda.kda_decode.launches,
+                       "mla32": md.mla_decode_attention.launches}
+    assert out["launches"]["kda"] == 20 * 16, out["launches"]
+    log(f"[15] KDA decode kernel vs twin and prefill, MLA at 32 heads NoPE "
+        f"vs plain: {json.dumps(out['err'])}")
+    log(f"[15] us per launch over 20 KDA / 7 MLA layers (bound: bytes / "
+        f"3.35 TB/s): {json.dumps(out['timed'])}; 2 generates of 8 rows x "
+        f"9 tokens {wall:.2f} s, launches {out['launches']}; {smi_line()}")
+    del lm
+    torch.cuda.empty_cache()
+    return out
+
+
 def topics_phase(seed: int) -> dict:
     """Phase 14: the topic LM (``models/moe_lm.py``) at Moonlight-16B-A3B's
     published widths (seeded stand-in weights, bf16, 15.96 B parameters)
@@ -4240,7 +4459,7 @@ def topics_phase(seed: int) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=("s2t", "ln", "topics", "mla"),
+    ap.add_argument("--only", choices=("s2t", "ln", "topics", "mla", "kimi"),
                     help="run the card check, the build and this phase "
                          "alone")
     ap.add_argument("--rank-worker", help=argparse.SUPPRESS)
@@ -4262,6 +4481,8 @@ def main() -> int:
             topics_phase(args.seed)
         elif args.only == "mla":
             mla_decode_check(args.seed)
+        elif args.only == "kimi":
+            kimi_phase(args.seed)
         else:
             add_layer_norm_check(args.seed)
             graph_vs_eager(args.seed)
@@ -4314,6 +4535,7 @@ def main() -> int:
     s2t = s2t_phase(args.seed)["decode_attention"]
     mla = mla_decode_check(args.seed)
     lm = topics_phase(args.seed)
+    kimi = kimi_phase(args.seed)
     assert int8["launches"] > 0
     assert "jax" not in sys.modules
     assert not any(m.split(".")[0] == "audio_processor_tpu"
@@ -4403,6 +4625,18 @@ def main() -> int:
             {"max_abs_err": max(v for k, v in mla["err"].items()
                                 if k.startswith(err)),
              "ms": t["us"] / 1e3, "plain_ms": t["plain_us"] / 1e3,
+             "bound": (t["bound_us"] / 1e3, "bytes"),
+             "library_ms": None if t.get("library_us") is None
+             else t["library_us"] / 1e3}))
+    # the hybrid's kernels, counted over phase 15c's generate
+    for name, part in (("kda_decode", "kda"),
+                       ("mla_decode (attention, 32 heads, NoPE)", "mla32")):
+        t = kimi["timed"][part]
+        kernels.append(row(
+            name, "kda_decode.cu" if part == "kda" else "mla_decode.cu",
+            "none: the JAX package has no LM", kimi["launches"][part],
+            {"max_abs_err": kimi["err"][part], "ms": t["us"] / 1e3,
+             "plain_ms": t["plain_us"] / 1e3,
              "bound": (t["bound_us"] / 1e3, "bytes"),
              "library_ms": None if t.get("library_us") is None
              else t["library_us"] / 1e3}))

@@ -415,3 +415,105 @@ def test_decode_graph_spans_count_one_attention_launch_per_layer(card,
     for s in (2, 7):
         a, b = eager[1][s].float(), plain[1][s].float()
         assert float((a - b).norm() / b.norm()) < 2e-2
+
+
+# Kimi-Linear-48B-A3B's attention: 32 heads, no rotation (mla_use_nope)
+KIMI = dataclasses.replace(WIDE, num_attention_heads=32,
+                           num_key_value_heads=32, mla_use_nope=True)
+
+
+def test_prep_without_rotation_passes_q_pe_and_k_pe_as_projected():
+    """``rotate`` False: q_pe and the cached k_pe are the projections'
+    values, bit for bit, whatever cos and sin hold; c is normalised as
+    before; the decode of a NoPE model equals the expanded form."""
+    cfg = dataclasses.replace(SMALL, mla_use_nope=True)
+    attn = _attn(cfg, 11)
+    x, cos, sin, cache, pos, visible = _step(cfg, 4, 40, 12)
+    q, kv = attn.q_proj(x), attn.kv_a_proj_with_mqa(x)
+    norm = attn.kv_a_layernorm
+    with torch.no_grad():
+        q_nope, q_pe = md.mla_decode_prep(q, kv, cos.neg(), sin + 1,
+                                          norm.weight, norm.eps, cache, pos,
+                                          attn.nh, rotate=False)
+        nope = cfg.qk_nope_head_dim
+        assert torch.equal(q_pe, q.view(4, attn.nh, -1)[..., nope:])
+        rows = torch.arange(4)
+        lora = cfg.kv_lora_rank
+        assert torch.equal(cache[rows, pos, lora:], kv[:, lora:])
+        assert torch.equal(cache[rows, pos, :lora], norm(kv[:, :lora]))
+
+
+@pytest.mark.parametrize("heads,ok", [(16, True), (32, True), (17, False),
+                                      (24, False), (33, False)])
+def test_the_kernels_take_16_or_fewer_heads_or_32(heads, ok):
+    """The operand checks take 1-16 heads (one MMA group) or 32 (two) and
+    refuse the rest, for the prep and the attention alike."""
+    o = _kernel_operands(H=heads)
+    prep = ("q", "kv", "cos", "sin", "gain", "cache", "pos")
+    attn = ("q_lat", "q_pe", "cache", "visible")
+    for check, args in ((md._check_prep, [o[k] for k in prep] + [heads]),
+                        (md._check_attention, [o[k] for k in attn])):
+        if ok:
+            check(*args)
+        else:
+            with pytest.raises(ValueError, match="H|heads"):
+                check(*args)
+
+
+def test_32_head_nope_decode_takes_both_kernels(monkeypatch):
+    """A bf16 model at Kimi-Linear's MLA widths on a (pretend) card calls
+    the prep with rotation off and the attention with 32 heads."""
+    calls = []
+    monkeypatch.setattr(md, "_on", lambda device, name: False)
+    monkeypatch.setattr(
+        _cuda_call, "call",
+        lambda name, sig, dev, *args, entry="", label="": calls.append(
+            (entry, args)))
+    attn = _attn(KIMI, 1, torch.bfloat16).requires_grad_(False)
+    with torch.no_grad():
+        attn.decode(*_step(KIMI, 2, 128, 3, torch.bfloat16))
+    (prep, pargs), (att, aargs) = calls
+    assert (prep, att) == ("mla_decode_prep", "mla_decode_attention")
+    assert pargs[11:13] == (32, 0)          # heads, rotate
+    assert aargs[7] == 32                   # H
+
+
+@pytest.mark.cuda
+def test_32_head_nope_kernels_match_plain_on_the_card(card):
+    """At Kimi-Linear's MLA widths (32 heads, no rotation), R = 1, 3, 8,
+    capacities 64 and 4,096: the prep bit for bit on q_nope and q_pe and
+    the cached k_pe, the attention within 1e-2 of the plain version and of
+    SDPA under the causal mask."""
+    attn = _attn(KIMI, 2, torch.bfloat16).to(card)
+    norm = attn.kv_a_layernorm
+    for R in (1, 3, 8):
+        for cap in (64, 4096):
+            x, cos, sin, cache, pos, visible = _step(KIMI, R, cap, R + cap,
+                                                     torch.bfloat16, "cuda")
+            plain_cache = cache.clone()
+            with torch.no_grad():
+                q, kv = attn.q_proj(x), attn.kv_a_proj_with_mqa(x)
+                args = (q, kv, cos, sin, norm.weight, norm.eps)
+                got = md.mla_decode_prep(*args, cache, pos, 32, False)
+                want = md.mla_decode_prep_plain(*args, plain_cache, pos, 32,
+                                                False)
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
+            rows = torch.arange(R, device=card)
+            assert torch.equal(cache[rows, pos, md.LORA:],
+                               plain_cache[rows, pos, md.LORA:])
+            cache.copy_(plain_cache)
+            q_lat = torch.randn(32, R, md.LORA, device=card).to(torch.bfloat16)
+            o = md.mla_decode_attention(q_lat, got[1], cache, visible,
+                                        attn.scale)
+            p = md.mla_decode_attention_plain(q_lat, got[1], cache, visible,
+                                              attn.scale)
+            torch.testing.assert_close(o.float(), p.float(), atol=1e-2,
+                                       rtol=1e-2)
+            qq = torch.cat([q_lat.transpose(0, 1), got[1]], -1)[:, :, None]
+            sd = torch.nn.functional.scaled_dot_product_attention(
+                qq, cache[:, None].expand(-1, 32, -1, -1),
+                cache[:, None, :, :md.LORA].expand(-1, 32, -1, -1),
+                attn_mask=visible[:, None, None], scale=attn.scale)
+            torch.testing.assert_close(o.float(),
+                                       sd[:, :, 0].transpose(0, 1).float(),
+                                       atol=1e-2, rtol=1e-2)
