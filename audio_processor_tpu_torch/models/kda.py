@@ -26,14 +26,19 @@ the depthwise kernels of q, k and v (tap K−1 multiplies the newest input);
 [hidden, W].
 
 Prefill (:meth:`KimiDeltaAttention.prefill`): ragged packed rows, each
-from a zero state, in the chunkwise-parallel form of the same recurrence
-(:func:`chunk_kda`, chunks of 64): the intra-chunk parts (the decay
-cumsums, the pairwise products under the decay, the triangular UT solve in
-fp32, the intra-chunk outputs) are batched over rows, heads and chunks;
-only the state pass (:func:`state_pass`) loops over the chunks. It writes
-each row's final state and its last K−1 conv inputs into the decode state
-(span ``topics.kda_prefill``: ``layer``, ``rows``, ``tokens``,
-``chunks``).
+from a zero state; between the projections one call of
+:func:`kda_prefill`, which applies the conv and SiLU, normalises q and k,
+computes the gate and β, runs the recurrence chunk by chunk (chunks of
+64) in fp32, writes each row's final state and its last K−1 conv inputs
+into the decode state and gives the gated RMSNorm's output: one launch of
+``csrc/kda_prefill.cu`` for CUDA tensors (bf16 at D = 128 and K = 4; any
+other CUDA model raises there: no fallback), the plain twin
+:func:`kda_prefill_plain` for CPU tensors, which runs the
+chunkwise-parallel form :func:`chunk_kda` (the intra-chunk parts batched
+over rows, heads and chunks, the state pass :func:`state_pass` a loop over
+the chunks). ``kda_prefill.launches`` counts the kernel's launches. Span
+``topics.kda_prefill``: ``layer``, ``rows``, ``tokens``, ``chunks`` and
+``kernel_launches`` (the kernel's launches inside it).
 
 Decode (:meth:`KimiDeltaAttention.decode`): between the projections one
 call of :func:`kda_decode`, which shifts the conv state, applies the conv
@@ -52,7 +57,8 @@ inputs' dtype.
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from itertools import accumulate
+from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
@@ -93,65 +99,26 @@ class KimiDeltaAttention(nn.Module):
                        .transpose(0, 1), self.fg_b.transpose(1, 2))
         return p[:, :3 * W], fg, p[:, 3 * W + 2 * D:]
 
-    def _out(self, o: torch.Tensor, gate: torch.Tensor, dtype) -> torch.Tensor:
-        """o [T, H, D] fp32, gate logits [T, W] -> the gated RMSNorm [T, W]
-        in ``dtype``."""
-        y = F.rms_norm(o, (self.D,), self.o_norm.float(), self.eps) \
-            * torch.sigmoid(gate.float() + self.g_bias.float()
-                            ).unflatten(-1, (self.H, self.D))
-        return y.flatten(1).to(dtype)
-
-    def _conv(self, raw: torch.Tensor, t_in: torch.Tensor,
-              i: int) -> torch.Tensor:
-        """SiLU of the causal depthwise conv of projection ``i`` (q, k, v)
-        of packed rows' raw [N, 3W], in fp32; ``t_in`` [N] each token's
-        position in its row."""
-        W, K = self.W, self.K
-        r32 = raw[:, i * W:(i + 1) * W].float()
-        w = self.conv_weight[i * W:(i + 1) * W].float()
-        y = r32 * w[:, K - 1]
-        for m in range(1, K):           # the input m tokens back, in-row
-            back = torch.zeros_like(r32)
-            back[m:] = r32[:-m]
-            y += back.masked_fill_((t_in < m)[:, None], 0.0) \
-                * w[:, K - 1 - m]
-        return F.silu(y)
-
     def prefill(self, x: torch.Tensor, rows: Sequence[tuple],
                 state: torch.Tensor, conv_state: torch.Tensor,
                 layer: int = -1) -> torch.Tensor:
         """Packed tokens x [N, hidden] of ragged rows ((start, length) each,
         in order), each from a zero state -> the layer's output [N, hidden];
         writes each row's final state into ``state`` [R, H, D, D] (fp32)
-        and its last K−1 conv inputs into ``conv_state`` [R, K−1, 3W]."""
-        N = x.shape[0]
-        H, D, K = self.H, self.D, self.K
+        and its last K−1 conv inputs into ``conv_state`` [R, K−1, 3W]
+        (:func:`kda_prefill`)."""
         chunks = sum(-(-n // CHUNK) for _, n in rows)
         with profiler.span("topics.kda_prefill", layer=layer, rows=len(rows),
-                           tokens=N, chunks=chunks):
-            raw, fg, b = self._split(F.linear(x, self.in_proj.weight))
-            starts = torch.tensor([s for s, _ in rows], dtype=torch.long)
-            lens = torch.tensor([n for _, n in rows], dtype=torch.long)
-            t_in = torch.arange(N) - torch.repeat_interleave(starts, lens)
-            t_in = t_in.to(x.device)
-            q, k, v = (self._conv(raw, t_in, i).view(N, H, D)
-                       for i in range(3))
-            q = _l2(q) * D ** -0.5
-            k = _l2(k)
-            g = -self.A_log.float().exp()[:, None] * F.softplus(
-                fg[0].float() + self.dt_bias.float()).unflatten(-1, (H, D))
-            beta = torch.sigmoid(b.float())
-            o, final = chunk_kda(q, k, v, g, beta, [n for _, n in rows])
-            state.copy_(final)
-            # the last K-1 inputs of each row, oldest first, 0 before it
-            j = torch.arange(K - 1) - (K - 1)
-            at = (starts + lens)[:, None] + j[None]
-            ok = (lens[:, None] + j[None]) >= 0
-            last = raw[at.clamp(min=0).to(x.device)]
-            conv_state.copy_(last.masked_fill_(~ok.to(x.device)[..., None],
-                                               0))
-            return F.linear(self._out(o, fg[1], x.dtype),
-                            self.o_proj.weight)
+                           tokens=x.shape[0], chunks=chunks) as sp:
+            p = F.linear(x, self.in_proj.weight)
+            _, fg, _ = self._split(p)
+            o, launched = _cuda_call.counted(
+                kda_prefill, p, fg, self.conv_weight, self.A_log,
+                self.dt_bias, self.g_bias, self.o_norm, self.eps, rows,
+                state, conv_state)
+            if sp is not None:
+                sp.attrs["kernel_launches"] = launched.get(kda_prefill, 0)
+            return F.linear(o, self.o_proj.weight)
 
     def decode(self, x: torch.Tensor, state: torch.Tensor,
                conv_state: torch.Tensor) -> torch.Tensor:
@@ -294,6 +261,114 @@ def chunk_kda(q, k, v, g, beta, lengths: Sequence[int], chunk: int = CHUNK):
     return o[at[0], at[1], :, at[2]], S
 
 
+# ---- the prefill between the projections ----------------------------
+
+def _conv(raw: torch.Tensor, conv_weight: torch.Tensor, t_in: torch.Tensor,
+          i: int) -> torch.Tensor:
+    """SiLU of the causal depthwise conv of projection ``i`` (q, k, v) of
+    packed rows' raw [N, 3W], in fp32; ``t_in`` [N] each token's position
+    in its row."""
+    W, K = raw.shape[1] // 3, conv_weight.shape[1]
+    r32 = raw[:, i * W:(i + 1) * W].float()
+    w = conv_weight[i * W:(i + 1) * W].float()
+    y = r32 * w[:, K - 1]
+    for m in range(1, K):           # the input m tokens back, in-row
+        back = torch.zeros_like(r32)
+        back[m:] = r32[:-m]
+        y += back.masked_fill_((t_in < m)[:, None], 0.0) * w[:, K - 1 - m]
+    return F.silu(y)
+
+
+def _gated_norm(o, gate, g_bias, o_norm, eps: float, dtype) -> torch.Tensor:
+    """o [T, H, D] fp32, gate logits [T, W] -> RMSNorm(o) · w_norm ·
+    sigmoid(gate + g_bias) [T, W] in ``dtype``."""
+    y = F.rms_norm(o, (o.shape[-1],), o_norm.float(), eps) * torch.sigmoid(
+        gate.float() + g_bias.float()).view(o.shape)
+    return y.flatten(1).to(dtype)
+
+
+def kda_prefill_plain(p, fg, conv_weight, A_log, dt_bias, g_bias, o_norm,
+                      eps: float, rows: Sequence[tuple], state, conv_state):
+    """The PyTorch version of :func:`kda_prefill`: the chunkwise form
+    (:func:`chunk_kda`)."""
+    N = p.shape[0]
+    W, K = conv_weight.shape[0] // 3, conv_weight.shape[1]
+    H, D = A_log.shape[0], o_norm.shape[0]
+    raw = p[:, :3 * W]
+    starts = torch.tensor([s for s, _ in rows], dtype=torch.long)
+    lens = torch.tensor([n for _, n in rows], dtype=torch.long)
+    t_in = torch.arange(N) - torch.repeat_interleave(starts, lens)
+    t_in = t_in.to(p.device)
+    q, k, v = (_conv(raw, conv_weight, t_in, i).view(N, H, D)
+               for i in range(3))
+    q = _l2(q) * D ** -0.5
+    k = _l2(k)
+    g = -A_log.float().exp()[:, None] * F.softplus(
+        fg[0].float() + dt_bias.float()).unflatten(-1, (H, D))
+    beta = torch.sigmoid(p[:, -H:].float())
+    o, final = chunk_kda(q, k, v, g, beta, [n for _, n in rows])
+    state.copy_(final)
+    # the last K-1 inputs of each row, oldest first, 0 before it
+    j = torch.arange(K - 1) - (K - 1)
+    at = (starts + lens)[:, None] + j[None]
+    ok = (lens[:, None] + j[None]) >= 0
+    last = raw[at.clamp(min=0).to(p.device)]
+    conv_state.copy_(last.masked_fill_(~ok.to(p.device)[..., None], 0))
+    return _gated_norm(o, fg[1], g_bias, o_norm, eps, p.dtype)
+
+
+def _check_rows(rows: Sequence[tuple], N: int) -> None:
+    """Raise ValueError unless ``rows`` packs [0, N) in order."""
+    lens = [n for _, n in rows]
+    if (not rows or min(lens) < 0
+            or [s for s, _ in rows] != list(accumulate([0] + lens[:-1]))
+            or sum(lens) != N):
+        raise ValueError(f"rows {list(rows)} must pack [0, {N}) in order")
+
+
+def kda_prefill(p: torch.Tensor, fg: torch.Tensor, conv_weight: torch.Tensor,
+                A_log: torch.Tensor, dt_bias: torch.Tensor,
+                g_bias: torch.Tensor, o_norm: torch.Tensor, eps: float,
+                rows: Sequence[tuple], state: torch.Tensor,
+                conv_state: torch.Tensor) -> torch.Tensor:
+    """The KDA prefill of ragged packed rows ((start, length) each, packing
+    [0, N) in order), each from a zero state, after the projections -> the
+    gated RMSNorm's output [N, W] in p's dtype. p [N, 3W + 2D + H] and fg
+    [2, N, W] as for :func:`kda_decode`; writes each row's final state
+    into ``state`` [R, H, D, D] (fp32) and its last K−1 raw inputs (oldest
+    first, 0 before the row) into ``conv_state`` [R, K−1, 3W]. CPU tensors
+    take the plain version, CUDA tensors the kernel (or raise); autograd
+    recording a gradient of an operand raises on every device."""
+    _cuda_call.refuse_autograd("kda_prefill", p, fg, conv_weight, A_log,
+                               dt_bias, g_bias, o_norm)
+    if p.device.type == "cpu":
+        return kda_prefill_plain(p, fg, conv_weight, A_log, dt_bias, g_bias,
+                                 o_norm, eps, rows, state, conv_state)
+    if p.device.type != "cuda":
+        raise ValueError(f"kda_prefill runs on cpu (plain) or cuda (kernel), "
+                         f"not {p.device}")
+    _check(p, fg, conv_weight, A_log, dt_bias, g_bias, o_norm, state,
+           conv_state, rows=len(rows))
+    N, R, H = p.shape[0], len(rows), A_log.shape[0]
+    _check_rows(rows, N)
+    # (row, start, length), longest first: the long rows' blocks start first
+    order = sorted(range(R), key=lambda r: -rows[r][1])
+    info = torch.tensor([[r, *rows[r]] for r in order], dtype=torch.int32
+                        ).to(p.device, non_blocking=True)
+    out = torch.empty(N, H * HEAD_DIM, dtype=p.dtype, device=p.device)
+    _cuda_call.call(
+        "kda_prefill", "plppppppfppppiii", p.device, p.data_ptr(),
+        p.stride(0), fg.data_ptr(), conv_weight.data_ptr(), A_log.data_ptr(),
+        dt_bias.data_ptr(), g_bias.data_ptr(), o_norm.data_ptr(), float(eps),
+        info.data_ptr(), state.data_ptr(), conv_state.data_ptr(),
+        out.data_ptr(), R, N, H)
+    _cuda_call.count_launch(kda_prefill)
+    return out
+
+
+kda_prefill.launches = 0
+
+
 # ---- the decode step -------------------------------------------------
 
 def kda_decode_plain(p, fg, conv_weight, A_log, dt_bias, g_bias, o_norm,
@@ -317,19 +392,20 @@ def kda_decode_plain(p, fg, conv_weight, A_log, dt_bias, g_bias, o_norm,
     S = S + k[..., None] * u[..., None, :]
     state.copy_(S)
     o = torch.einsum("rhk,rhkv->rhv", q, S)
-    y = F.rms_norm(o, (D,), o_norm.float(), eps) * torch.sigmoid(
-        fg[1].float() + g_bias.float()).view(R, H, D)
-    return y.flatten(1).to(p.dtype)
+    return _gated_norm(o, fg[1], g_bias, o_norm, eps, p.dtype)
 
 
 def _check(p, fg, conv_weight, A_log, dt_bias, g_bias, o_norm, state,
-           conv_state) -> None:
-    """Raise ValueError on operands the kernel does not take."""
+           conv_state, rows: Optional[int] = None) -> None:
+    """Raise ValueError on operands the kernels do not take: the decode
+    kernel's (one token a row), or with ``rows`` the prefill kernel's
+    (p's and fg's N tokens of that many rows)."""
     H = A_log.shape[0] if A_log.dim() == 1 else -1
     W = H * HEAD_DIM
-    R = p.shape[0] if p.dim() == 2 else -1
-    want = {"p": (p, (R, 3 * W + 2 * HEAD_DIM + H), torch.bfloat16),
-            "fg": (fg, (2, R, W), torch.bfloat16),
+    N = p.shape[0] if p.dim() == 2 else -1
+    R = N if rows is None else rows
+    want = {"p": (p, (N, 3 * W + 2 * HEAD_DIM + H), torch.bfloat16),
+            "fg": (fg, (2, N, W), torch.bfloat16),
             "conv_weight": (conv_weight, (3 * W, CONV), torch.bfloat16),
             "A_log": (A_log, (H,), torch.float32),
             "dt_bias": (dt_bias, (W,), torch.float32),
@@ -347,7 +423,7 @@ def _check(p, fg, conv_weight, A_log, dt_bias, g_bias, o_norm, state,
         raise ValueError(f"p's rows must be dense, on {state.device}")
     _cuda_call.check_tensors(p.device, [
         (n, t) for n, (t, _, _) in want.items() if n != "p"])
-    if R > 65535 or H > 65535:
+    if (R > 65535 or H > 65535) if rows is None else R * H >= 2 ** 31:
         raise ValueError(f"{R} rows x {H} heads exceed the launch grid")
 
 

@@ -251,7 +251,14 @@ Phases, each of which fails the run (non-zero exit) on any error:
    versions and SDPA, us per launch beside the byte bound; 15c one
    graph-replayed ``generate`` of a 27-layer hybrid at published widths
    with 8 of the 256 experts held, whose every ``topics.graph`` span has
-   ``kda_launches`` 20 x its steps and ``mla_launches`` 7 x its steps.
+   ``kda_launches`` 20 x its steps and ``mla_launches`` 7 x its steps,
+   and 20 launches of the prefill kernel a generate; 15d the KDA prefill
+   kernel (``csrc/kda_prefill.cu``) against its plain twin over 8 ragged
+   rows of ~1,270 and ~3,960 tokens (the topics prompts) at published
+   widths (output within a bf16 step, each state within 1e-7 relative
+   MSE, conv states bit for bit), then ms a layer beside the twin's and
+   the bound (operations at 67 TFLOP/s of fp32 FFMA or bytes at 3.35
+   TB/s).
 
 Kernel launch counts are set to 0 just before each of the paths 5, 5b,
 6, 7, 7c, 8, 10, 11a (in each process) and 11e, before phase 13's
@@ -288,7 +295,8 @@ import torch.nn.functional as F
 
 REPO = Path(__file__).resolve().parent
 SOURCES = ("flash_rel_attention", "flash_attention", "flash_rel_parts",
-           "decode_attention", "add_layer_norm", "mla_decode", "kda_decode")
+           "decode_attention", "add_layer_norm", "mla_decode", "kda_decode",
+           "kda_prefill")
 # Kernel vs plain: fp32 holds the JAX tests' tolerance (only summation
 # order differs); bf16 outputs may differ by one bf16 rounding (2^-8 to
 # 2^-7 relative) since both sides compute in fp32 and round at the end.
@@ -313,6 +321,7 @@ FLASH_SHAPES = [(b, n) for b in (12, 24, 48) for n in (256, 1280)]
 PARTS_TOL = (4e-3, 1e-2)
 HBM_BYTES_S = 3.35e12   # H100 SXM HBM3 rate (NVIDIA's data sheet)
 BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core peak (same)
+FP32_FLOPS = 67e12      # H100 SXM fp32 outside the tensor cores (same)
 ABLATION_VARIANTS = ("full", "noselect", "norel", "nomax", "nosoftmax",
                      "noexp", "kb640", "bare:ones", "bare:reduce",
                      "shipped", "stock")
@@ -1056,13 +1065,13 @@ def _counters() -> dict:
         flash_rel_attention,
     )
     from audio_processor_tpu_torch.models.layer_norm import add_layer_norm
-    from audio_processor_tpu_torch.models.kda import kda_decode
+    from audio_processor_tpu_torch.models.kda import kda_decode, kda_prefill
     from audio_processor_tpu_torch.models.mla_decode import (
         mla_decode_attention,
         mla_decode_prep,
     )
 
-    return {"kda_decode": kda_decode,
+    return {"kda_decode": kda_decode, "kda_prefill": kda_prefill,
             "flash_rel_attention": flash_rel_attention,
             "flash_attention": flash_attention, "kb640": frp.kb640,
             "bare": frp.bare, "variant": frp.variant,
@@ -1190,7 +1199,7 @@ def ablation_path(seed: int) -> dict:
               "kb640": per, "bare": 2 * per, "variant": 6 * per,
               "decode_attention": 0, "add_layer_norm": 0,
               "mla_decode_prep": 0, "mla_decode_attention": 0,
-              "kda_decode": 0}
+              "kda_decode": 0, "kda_prefill": 0}
     log(f"[ablation] launches {counts} (expected {expect})")
     assert counts == expect, counts
     return {"launches": counts, "ms": ms}
@@ -4101,6 +4110,71 @@ def _kda_layer(dev, seed: int):
     return layer
 
 
+def _kda_chunk_flops(L: int, D: int = 128, n_c: int = 64) -> int:
+    """Operations of the chunkwise KDA form over one head of an L-token
+    row: per chunk of n the decayed q.k and k.k pairs, the triangular
+    solve, w and u, and the state pass (w.S, q.S, A.v_new, k_d^T.v_new)."""
+    full, rem = divmod(L, n_c)
+    total = 0
+    for n in [n_c] * full + ([rem] if rem else []):
+        incl, strict = n * (n + 1) // 2, n * (n - 1) // 2
+        total += (2 * D * (incl + strict) + n ** 3 + 2 * 2 * D * incl
+                  + 3 * 2 * n * D * D + 2 * D * incl)
+    return total
+
+
+def kda_prefill_check(layer, dev, gen) -> tuple:
+    """Phase 15d: the KDA prefill kernel (``csrc/kda_prefill.cu``) against
+    its plain twin over 8 ragged rows of the topics prompts' lengths (≈
+    1,270 and ≈ 3,960 tokens) at Kimi-Linear's widths, the inputs
+    projected by ``layer``; then ms per layer beside the twin's and the
+    bound (operations at the fp32 FFMA peak or bytes at 3.35 TB/s).
+    -> ({length: errors}, {length: times})."""
+    from audio_processor_tpu_torch.models import kda
+
+    R, H, D, W = 8, layer.H, layer.D, layer.W
+    errs, timed = {}, {}
+    for L in (1270, 3960):
+        lengths = [L - 37 * r for r in range(R)]
+        rows = [(sum(lengths[:r]), n) for r, n in enumerate(lengths)]
+        N = sum(lengths)
+        x = torch.randn(N, 2304, device=dev, generator=gen) \
+            .to(torch.bfloat16)
+        with torch.inference_mode():
+            p = F.linear(x, layer.in_proj.weight)
+            _, fg, _ = layer._split(p)
+            args = (p, fg, layer.conv_weight, layer.A_log, layer.dt_bias,
+                    layer.g_bias, layer.o_norm, layer.eps)
+            st = torch.zeros(R, H, D, D, device=dev)
+            cv = torch.zeros(R, 3, 3 * W, device=dev, dtype=torch.bfloat16)
+            st2, cv2 = st.clone(), cv.clone()
+            got = kda.kda_prefill(*args, rows, st, cv)
+            want = kda.kda_prefill_plain(*args, rows, st2, cv2)
+            torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                                       rtol=1e-2)
+            rel = [float((st[r].double() - st2[r].double()).pow(2).sum()
+                         / st2[r].double().pow(2).sum()) for r in range(R)]
+            assert max(rel) <= 1e-7 and torch.equal(cv, cv2), (L, rel)
+            errs[L] = {"out_max_abs": float((got.float() - want.float())
+                                            .abs().max()),
+                       "state_rel_mse_max": max(rel)}
+            ms = _cuda_ms(lambda: kda.kda_prefill(*args, rows, st, cv), 10)
+            plain_ms = _cuda_ms(lambda: kda.kda_prefill_plain(
+                *args, rows, st2, cv2), 2)
+        ops = H * sum(_kda_chunk_flops(n, D) for n in lengths)
+        nbytes = (2 * N * (6 * W + H) + 4 * R * H * D * D
+                  + 2 * R * 3 * 3 * W + 2 * (3 * W * 4 + W + D)
+                  + 4 * (H + W))
+        timed[L] = {"ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": 1e3 * max(ops / FP32_FLOPS,
+                                          nbytes / HBM_BYTES_S),
+                    "bound_by": "operations" if ops / FP32_FLOPS
+                    > nbytes / HBM_BYTES_S else "bytes",
+                    "tflop": ops / 1e12, "gb": nbytes / 1e9}
+        del x, p, fg, args, st, cv, st2, cv2, got, want
+    return errs, timed
+
+
 def kimi_phase(seed: int) -> dict:
     """Phase 15 (see the module's notes): the KDA decode kernel, the MLA
     kernels at 32 heads without rotation, and the launches of a
@@ -4177,7 +4251,15 @@ def kimi_phase(seed: int) -> dict:
                            "plain_kernels_per_layer": kernels,
                            "bound_us": 1e6 * nbytes / 3.35e12,
                            "bytes": nbytes}
-    del states, convs, layer
+    del states, convs
+    # 15d: the prefill kernel at the topics prompts' shapes
+    out["err"]["kda_prefill"], out["timed"]["kda_prefill"] = \
+        kda_prefill_check(layer, dev, gen)
+    log(f"[15d] KDA prefill kernel vs twin, ms a layer beside the twin and "
+        f"the bound: {json.dumps(out['err']['kda_prefill'])} "
+        f"{json.dumps(out['timed']['kda_prefill'])}")
+    del layer
+    torch.cuda.empty_cache()
     # 15b: the MLA kernels at 32 heads, no rotation
     cfg = dataclasses.replace(moe_lm.MoELMConfig(), num_attention_heads=32,
                               num_key_value_heads=32, hidden_size=2304,
@@ -4269,8 +4351,10 @@ def kimi_phase(seed: int) -> dict:
         assert s.attrs["kda_launches"] == 20 * s.attrs["steps"], s.attrs
         assert s.attrs["mla_launches"] == 7 * s.attrs["steps"], s.attrs
     out["launches"] = {"kda": kda.kda_decode.launches,
+                       "kda_prefill": kda.kda_prefill.launches,
                        "mla32": md.mla_decode_attention.launches}
     assert out["launches"]["kda"] == 20 * 16, out["launches"]
+    assert out["launches"]["kda_prefill"] == 20 * 2, out["launches"]
     log(f"[15] KDA decode kernel vs twin and prefill, MLA at 32 heads NoPE "
         f"vs plain: {json.dumps(out['err'])}")
     log(f"[15] us per launch over 20 KDA / 7 MLA layers (bound: bytes / "
@@ -4640,6 +4724,14 @@ def main() -> int:
              "bound": (t["bound_us"] / 1e3, "bytes"),
              "library_ms": None if t.get("library_us") is None
              else t["library_us"] / 1e3}))
+    t = kimi["timed"]["kda_prefill"][3960]
+    kernels.append(row(
+        "kda_prefill (8 x ~3,960 tokens)", "kda_prefill.cu",
+        "none: the JAX package has no LM", kimi["launches"]["kda_prefill"],
+        {"max_abs_err": max(e["out_max_abs"]
+                            for e in kimi["err"]["kda_prefill"].values()),
+         "ms": t["ms"], "plain_ms": t["plain_ms"],
+         "bound": (t["bound_ms"], t["bound_by"]), "library_ms": None}))
     assert all(k["launches"] > 0 for k in kernels), kernels
     log(smi_line())            # again here, beside the numbers it qualifies
     log(json.dumps({"kernels": kernels}))

@@ -324,8 +324,8 @@ def test_spans_count_the_kda_prefill_state_and_held_experts(model):
         out, tapped = _generate(model, prompts, 6, taps={1})
         got = [s for s in profiler.spans() if s.id not in seen]
     pre = [s.attrs for s in got if s.name == "topics.kda_prefill"]
-    assert pre == [{"layer": i, "rows": 2, "tokens": 76, "chunks": 3}
-                   for i in (0, 1, 2)]
+    assert pre == [{"layer": i, "rows": 2, "tokens": 76, "chunks": 3,
+                    "kernel_launches": 0} for i in (0, 1, 2)]
     dec = next(s for s in got if s.name == "topics.decode")
     assert dec.attrs["experts_held"] == 8
     assert dec.attrs["state_bytes"] == 3 * 2 * 2 * 16 * 16 * 4

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Card time of one KDA layer's chunked prefill (``models/kda.py``) at
-Kimi-Linear-48B-A3B's widths (hidden 2,304, 32 heads of 128, conv 4,
+"""Card time of one KDA layer's prefill (``models/kda.py``: the projections
+and the prefill kernel, ``csrc/kda_prefill.cu``) at Kimi-Linear-48B-A3B's
+widths (hidden 2,304, 32 heads of 128, conv 4,
 bf16 stand-in weights) over the topics mix's prompt shapes.
 
     python3 tools/profile_kda_prefill_torch.py [--rows 8] [--lengths 1270,3960]
